@@ -3,20 +3,29 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and the CUDA toolkit (nvcc). Drives the port's
-live ingest-and-score path — TBLK blocks → wire.decode_block →
-IngestManager.score_batch (fused engine, 8 shards, the reference's
-default detector sizes) → push_alert — and holds every kernel of that
-path against its plain PyTorch version on the card. Each phase prints
-one JSON line; any failure raises and the script exits non-zero. The
-last line of standard output is
+Needs one CUDA card and the CUDA toolkit (nvcc). Drives the port's two
+paths and holds every kernel of them against its plain PyTorch version
+on the card:
+
+  * the live ingest-and-score path — TBLK blocks → wire.decode_block →
+    IngestManager.score_batch (fused engine, 8 shards, the reference's
+    default detector sizes) → push_alert; its kernel is B1
+    (csrc/stream_scan.cu);
+  * the TAD batch job — generate_flows → build_series →
+    detect_anomalies for EWMA, DBSCAN and ARIMA at 8,192 series × 128
+    points; its kernel is B2 (csrc/dbscan_noise.cu, DBSCAN).
+
+Each phase prints one JSON line; any failure raises and the script
+exits non-zero. The last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Phases: 1 device, 2 build, 3 kernel vs plain, 4 main path, 5 card vs
-CPU parity, 6 the kernels line, 7 the result line. Imports nothing
-of JAX and nothing of the JAX package. Writes only under the
-package's _build/ directory.
+Phases: device; build (both libraries in parallel); B1 against its
+plain version; the ingest path; ingest card vs CPU parity; B2 against
+its plain version; the TAD path; TAD card vs CPU parity; then the
+kernels line, the card's name and power limit, and the result line.
+Imports nothing of JAX and nothing of the JAX package. Writes only
+under the package's _build/ directories.
 """
 
 from __future__ import annotations
@@ -58,6 +67,36 @@ RTOL = 1e-4
 #: another centroid, and centroids agree within KMEANS_RTOL.
 KMEANS_MOVED = 1e-3
 KMEANS_RTOL = 1e-3
+
+#: B2's shapes [S, T]: the reference test's (tests/test_kernels.py),
+#: the TAD path's, a day at one point a minute, and a long series
+B2_SHAPES = ((5, 7), (16, 128), (33, 40), (1, 1), (8192, 128),
+             (256, 1440), (4, 4096))
+DBSCAN_EPS = 2.5e8
+DBSCAN_MIN_SAMPLES = 4
+#: a core point with three neighbours below it, a border point 0.9 eps
+#: above it (two neighbours: itself and the core) and an isolated noise
+#: point far above the rest of the data
+DBSCAN_KINDS = tuple(8.6e9 + DBSCAN_EPS * k
+                     for k in (0.0, -0.5, -0.6, -0.7, 0.9, 100.0))
+#: B2 per pair test: subtract, absolute value, compare, two ands or an
+#: add — about five 32-bit operations
+B2_OPS_PER_PAIR = 5
+#: B2 per point: x (4 B) and mask (1 B) read, the flag (1 B) written
+B2_BYTES_PER_POINT = 6
+TAD_SERIES = 8192
+TAD_POINTS = 128
+TAD_ALGOS = ("EWMA", "DBSCAN", "ARIMA")
+TAD_PARITY_SERIES = 512
+#: TAD rows card vs CPU: identity, anomaly, flowEndSeconds and
+#: throughput exact; the floats within the CPU tests' limits against
+#: the reference (tests/test_torch_masked_ewma.py, test_torch_tad.py):
+#: stddev is a sum over T in another order (float64 for EWMA and
+#: ARIMA, float32 for the DBSCAN batch), ARIMA's algoCalc goes through
+#: log, exp and pow of another libm; EWMA's algoCalc is the same scan
+#: op for op and DBSCAN's is zero.
+TAD_STD_RTOL = {"float64": 2e-15, "float32": 1e-6}
+TAD_CALC_RTOL = {"EWMA": 0.0, "DBSCAN": 0.0, "ARIMA": 1e-9}
 
 
 def emit(phase: str, **fields) -> None:
@@ -544,6 +583,311 @@ def check_parity(got: dict) -> None:
         raise AssertionError(f"card vs CPU beyond {limits}: {over}")
 
 
+# -- phase: B2 against its plain version --------------------------------
+
+def dbscan_inputs(seed: int, s: int, t: int):
+    """The reference test's data (tests/test_kernels.py): half the
+    points ~N(2e8, 1e7), the rest U(1e5, 1e9), ~80% valid; plus a chain
+    of points exactly eps apart in row 0 and, in row 1, a core, a border
+    and a noise point (DBSCAN_KINDS). float32, as B2 computes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(1e5, 1e9, size=(s, t))
+    half = max(t // 2, 1)
+    x[:, :half] = rng.normal(2e8, 1e7, size=(s, half))
+    mask = rng.random(size=(s, t)) > 0.2
+    if t >= 4:
+        x[0, -4:] = 5e8 + DBSCAN_EPS * np.arange(4)
+        mask[0, -4:] = True
+    if t >= 6 and (s > 1 or t >= 10):
+        row = min(1, s - 1)
+        x[row, :6] = DBSCAN_KINDS
+        mask[row, :6] = True
+    return x.astype(np.float32), mask
+
+
+def dbscan_kinds(x, mask) -> dict:
+    """Core, border and noise counts from the closed form on the card,
+    and the pair tests the two passes need: every valid pair for the
+    counts, then every (valid non-core i, core j) pair for reach."""
+    within = ((x[:, :, None] - x[:, None, :]).abs() <= DBSCAN_EPS) \
+        & mask[:, :, None] & mask[:, None, :]
+    n = mask.sum(-1)
+    core = (within.sum(-1) >= DBSCAN_MIN_SAMPLES) & mask
+    reach = (within & core[:, None, :]).any(-1)
+    non_core = (mask & ~core).sum(-1)
+    return {"core": int(core.sum()), "border": int((mask & ~core & reach).sum()),
+            "noise": int((mask & ~core & ~reach).sum()),
+            "pairs": int((n.long() ** 2).sum()
+                         + (non_core.long() * core.sum(-1).long()).sum())}
+
+
+def b2_bound_ms(s: int, t: int, pairs: int) -> tuple:
+    by_bytes = B2_BYTES_PER_POINT * s * t / HBM_BYTES_PER_S * 1e3
+    by_ops = B2_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def compare_dbscan(s: int, t: int, device) -> dict:
+    """One shape: B2 and the plain version on the same card inputs,
+    bit-exact; the inputs must hold core, border and noise points
+    (S·T ≥ 6 and room for DBSCAN_KINDS). Times on the card."""
+    import torch
+    from theia_tpu_torch.ops import dbscan
+    x, m = dbscan_inputs(s * 7919 + t, s, t)
+    xt = torch.tensor(x, device=device)
+    mt = torch.tensor(m, device=device)
+    launches = dbscan.launches
+    got = dbscan.dbscan_noise_cuda(xt, mt)
+    want = dbscan.dbscan_noise(xt, mt)
+    dbscan.launches = launches      # comparison launches don't count
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"B2 differs from plain at [{s}, {t}]: "
+            f"{int((got != want).sum())} flags")
+    kinds = dbscan_kinds(xt, mt)
+    if t >= 6 and (s > 1 or t >= 10) and not (
+            kinds["core"] and kinds["border"] and kinds["noise"]):
+        raise AssertionError(f"B2 inputs at [{s}, {t}] lack a kind of "
+                             f"point: {kinds}")
+    m8 = mt.to(torch.uint8)         # kernel-only timing: no mask cast
+    row = {"S": s, "T": t, "bit_exact": True, "max_abs_err": 0.0,
+           "flags": int(got.sum()), **kinds,
+           "ms": graph_ms(lambda: dbscan.dbscan_noise_cuda(xt, m8)),
+           "call_ms": cuda_median_ms(
+               lambda: dbscan.dbscan_noise_cuda(xt, mt)),
+           "plain_ms": cuda_median_ms(lambda: dbscan.dbscan_noise(xt, mt))}
+    # launches the wrapper counted for this shape's check and timing
+    # (each is the two passes; graph replays re-run the captured ones
+    # uncounted). They are not the TAD path's and are taken back out.
+    row["counted_launches"] = dbscan.launches - launches
+    dbscan.launches = launches
+    row["bound_ms"], row["bound_by"] = b2_bound_ms(s, t, kinds["pairs"])
+    return row
+
+
+# -- phase: the TAD path ------------------------------------------------
+
+def tad_flows(n_series: int, points: int, seed: int):
+    """The reference's end-to-end TAD traffic (tests/test_tad.py): a
+    1e7 base with 100× spikes on a tenth of the series, so that DBSCAN's
+    fixed eps sees the spikes leave the cluster."""
+    from theia_tpu_torch.data.synth import SynthConfig, generate_flows
+    return generate_flows(SynthConfig(
+        n_series=n_series, points_per_series=points, anomaly_fraction=0.1,
+        anomaly_magnitude=100.0, base_throughput=1e7, seed=seed))
+
+
+class ScoreTimer:
+    """Times every call of analytics.tad.score_series while active:
+    host seconds, and the device span from CUDA events recorded around
+    the call (score_series ends by copying its results to the host)."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self.device_ms = 0.0
+
+    def __enter__(self):
+        from theia_tpu_torch.analytics import tad
+        self._orig = tad.score_series
+
+        def timed(*args, **kw):
+            import torch
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            out = self._orig(*args, **kw)
+            b.record()
+            b.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.device_ms += a.elapsed_time(b)
+            return out
+
+        tad.score_series = timed
+        return self
+
+    def __exit__(self, *exc):
+        from theia_tpu_torch.analytics import tad
+        tad.score_series = self._orig
+        return False
+
+
+def missed_spikes(flows, n_series: int, rows) -> int:
+    """Ground-truth spikes with no result row, matched as
+    tests/test_tad.py does: (sourceIP, sourceTransportPort, spike
+    throughput)."""
+    import numpy as np
+    sip = flows.strings("sourceIP").reshape(n_series, -1)[:, 0]
+    sport = flows["sourceTransportPort"].reshape(n_series, -1)[:, 0]
+    thr = flows["throughput"].reshape(n_series, -1)
+    flagged = {(r["sourceIP"], r["sourceTransportPort"],
+                int(r["throughput"])) for r in rows}
+    return sum((sip[i], int(sport[i]), int(thr[i].max())) not in flagged
+               for i in np.nonzero(flows.ground_truth_anomalous)[0])
+
+
+def phase_tad(flows, device) -> dict:
+    """build_series → detect_anomalies for each algorithm on the card,
+    B2's count set to 0 just before each run and read just after; then
+    one profiled pass per algorithm for the device's idle share."""
+    import numpy as np
+    import torch
+    from theia_tpu_torch.analytics.series import TadQuerySpec, build_series
+    from theia_tpu_torch.analytics.tad import detect_anomalies
+    from theia_tpu_torch.ops import dbscan
+
+    # The first build_series builds the native series builder (g++):
+    # set-up, timed apart from tensorize.
+    t0 = time.perf_counter()
+    build_series(flows.take(np.arange(min(len(flows), 1024))),
+                 TadQuerySpec())
+    native_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = build_series(flows, TadQuerySpec())
+    tensorize_s = time.perf_counter() - t0
+    records = int(batch.mask.sum())
+    # Warm CUDA's lazy set-up and the kernel on a slice of the batch.
+    small = dataclasses.replace(
+        batch, values=batch.values[:64], times=batch.times[:64],
+        mask=batch.mask[:64],
+        keys={k: v[:64] for k, v in batch.keys.items()})
+    for algo in TAD_ALGOS:
+        detect_anomalies(small, algo, "warm", now=0, device=device)
+
+    out = {"series": batch.n_series, "T": batch.values.shape[1],
+           "records": records, "dtype": str(batch.values.dtype),
+           "native_build_s": native_build_s, "tensorize_s": tensorize_s,
+           "algos": {}}
+    for algo in TAD_ALGOS:
+        with ScoreTimer() as timer:
+            dbscan.launches = 0
+            t0 = time.perf_counter()
+            rows = detect_anomalies(batch, algo, f"smoke-{algo}", now=0,
+                                    refit_every=1, device=device)
+            total = time.perf_counter() - t0
+            launches = dbscan.launches
+        missed = missed_spikes(flows, TAD_SERIES, rows)
+        out["algos"][algo] = {
+            "score_s": timer.seconds, "score_device_ms": timer.device_ms,
+            "rows_s": total - timer.seconds, "detect_s": total,
+            "records_per_s": records / timer.seconds,
+            "result_rows": len(rows), "b2_launches": launches,
+            "missed_spikes": missed,
+            "spikes": int(flows.ground_truth_anomalous.sum())}
+        if missed:
+            raise AssertionError(f"TAD {algo} missed {missed} ground-truth "
+                                 "spikes on the card")
+    if out["algos"]["DBSCAN"]["b2_launches"] < 1:
+        raise AssertionError("TAD DBSCAN did not go through B2")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for algo in TAD_ALGOS:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            detect_anomalies(batch, algo, "profiled", now=0, device=device)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        busy, by_kernel = device_activity(prof, window_us)
+        out["algos"][algo]["profiled"] = {
+            "window_s": window_us / 1e6,
+            "device_idle_share": None if busy is None else 1.0 - busy,
+            "device_ms_total": sum(v["ms"] for v in by_kernel.values()),
+            "device_launches": sum(v["count"] for v in by_kernel.values()),
+            "top_kernels": {name[:100]: v for name, v in
+                            list(by_kernel.items())[:6]}}
+    return out
+
+
+FLOAT_COLUMNS = ("throughputStandardDeviation", "algoCalc")
+
+
+def rows_differ(got, want) -> dict:
+    """TAD result rows card (got) against CPU (want): counts of rows
+    whose exact columns differ, and the largest relative float
+    differences."""
+    diff = {"rows": len(want), "count_equal": len(got) == len(want),
+            "exact_differ": 0, "std_max_rel": 0.0, "calc_max_rel": 0.0}
+    if len(got) != len(want):
+        return diff
+    for g, w in zip(got, want):
+        if {k: v for k, v in g.items() if k not in FLOAT_COLUMNS} != \
+                {k: v for k, v in w.items() if k not in FLOAT_COLUMNS}:
+            diff["exact_differ"] += 1
+        diff["std_max_rel"] = max(diff["std_max_rel"], max_rel(
+            [g["throughputStandardDeviation"]],
+            [w["throughputStandardDeviation"]]))
+        diff["calc_max_rel"] = max(diff["calc_max_rel"], max_rel(
+            [g["algoCalc"]], [w["algoCalc"]]))
+    return diff
+
+
+def phase_tad_parity(device) -> dict:
+    """The TAD job on the card and on the CPU over a smaller batch:
+    float64 for EWMA and ARIMA (as run_tad builds it), float32 for
+    DBSCAN so that both sides compute in B2's type."""
+    import numpy as np
+    from theia_tpu_torch.analytics.series import TadQuerySpec, build_series
+    from theia_tpu_torch.analytics.tad import detect_anomalies
+    flows = tad_flows(TAD_PARITY_SERIES, TAD_POINTS, seed=23)
+    out = {"series": TAD_PARITY_SERIES, "T": TAD_POINTS}
+    for algo in TAD_ALGOS:
+        dtype = np.float32 if algo == "DBSCAN" else np.float64
+        batch = build_series(flows, TadQuerySpec(), dtype=dtype)
+        card = detect_anomalies(batch, algo, "parity", now=0,
+                                device=device)
+        cpu = detect_anomalies(batch, algo, "parity", now=0, device="cpu")
+        got = rows_differ(card, cpu)
+        got["anomalies"] = sum(r["anomaly"] == "true" for r in cpu)
+        got["dtype"] = np.dtype(dtype).name
+        out[algo] = got
+    return out
+
+
+def check_tad_parity(got: dict) -> None:
+    for algo in TAD_ALGOS:
+        d = got[algo]
+        if not d["anomalies"]:
+            raise AssertionError(f"TAD parity {algo}: nothing fired")
+        if not d["count_equal"] or d["exact_differ"]:
+            raise AssertionError(f"TAD {algo} rows differ card vs CPU: {d}")
+        std_rtol = TAD_STD_RTOL[d["dtype"]]
+        if d["std_max_rel"] > std_rtol \
+                or d["calc_max_rel"] > TAD_CALC_RTOL[algo]:
+            raise AssertionError(
+                f"TAD {algo} floats card vs CPU beyond stddev {std_rtol} "
+                f"/ algoCalc {TAD_CALC_RTOL[algo]}: {d}")
+
+
+def build_kernels() -> dict:
+    """Both kernel libraries, one nvcc each, started together; seconds
+    per library."""
+    from theia_tpu_torch.ops import _build
+    seconds: dict = {}
+    errors: list = []
+
+    def build(name):
+        t0 = time.perf_counter()
+        try:
+            _build.library(name)
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            errors.append(e)
+        seconds[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=build, args=(n,))
+               for n in ("stream_scan", "dbscan_noise")]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return seconds
+
+
 # -- main ---------------------------------------------------------------
 
 def main() -> int:
@@ -560,10 +904,9 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    from theia_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.library("stream_scan")
-    emit("build", kernel="stream_scan", seconds=time.perf_counter() - t0)
+    emit("build", seconds=build_kernels(),
+         wall_seconds=time.perf_counter() - t0)
 
     scan_rows = phase_kernel_vs_plain(device)
     emit("kernel_vs_plain", kernel="B1 stream_scan", capacity=CAPACITY,
@@ -603,6 +946,39 @@ def main() -> int:
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
         "library_ms": None,
     }]
+
+    b2_rows = [compare_dbscan(s, t, device) for s, t in B2_SHAPES]
+    emit("kernel_vs_plain", kernel="B2 dbscan_noise", eps=DBSCAN_EPS,
+         min_samples=DBSCAN_MIN_SAMPLES, shapes=b2_rows)
+
+    t0 = time.perf_counter()
+    flows = tad_flows(TAD_SERIES, TAD_POINTS, seed=17)
+    emit("tad_traffic", seconds=time.perf_counter() - t0, rows=len(flows))
+    tad = phase_tad(flows, device)
+    emit("tad_path", **tad)
+    del flows
+
+    tad_parity = phase_tad_parity(device)
+    emit("tad_parity", std_rtol=TAD_STD_RTOL, calc_rtol=TAD_CALC_RTOL,
+         **tad_parity)
+    check_tad_parity(tad_parity)
+
+    # B2's numbers at the TAD path's shape.
+    at_tad = next(r for r in b2_rows if (r["S"], r["T"]) == (TAD_SERIES,
+                                                             TAD_POINTS))
+    kernels.append({
+        "name": "B2 dbscan_noise", "route": "cuda",
+        "source": "theia_tpu_torch/csrc/dbscan_noise.cu",
+        "replaces": "theia_tpu/ops/dbscan_pallas.py:57",
+        "tpu": "theia_tpu/ops/dbscan_pallas.py::dbscan_noise_pallas",
+        "launches": tad["algos"]["DBSCAN"]["b2_launches"],
+        "matches_plain": all(r["bit_exact"] for r in b2_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in b2_rows),
+        "shape": {"S": TAD_SERIES, "T": TAD_POINTS},
+        "ms": at_tad["ms"], "plain_ms": at_tad["plain_ms"],
+        "bound_ms": at_tad["bound_ms"], "bound_by": at_tad["bound_by"],
+        "library_ms": None,
+    })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

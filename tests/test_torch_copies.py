@@ -24,6 +24,9 @@ COPIES = (
     "schema/columnar.py",
     "store/wire.py",
     "data/synth.py",
+    "store/views.py",
+    "ingest/native.py",
+    "analytics/series.py",
 )
 
 

@@ -1,0 +1,330 @@
+"""Series construction: flow table → padded per-connection tensors.
+
+Re-provides the reference TAD job's SQL + groupby pipeline
+(plugins/anomaly-detection/anomaly_detection.py:507-710): filter flows,
+aggregate throughput per (group key, flowEndSeconds) — max() for raw
+connections, sum() for pod/external/svc aggregations — then collect each
+key's time series. The reference materializes ragged `collect_list` rows
+and maps Python UDFs over them; here every series lands in one padded
+[S, T] tensor + mask, time-sorted, ready for the batched kernels.
+
+Group-key modes (generate_tad_sql_query, :507-614):
+  * None       — 6-tuple connection key, max(throughput)
+  * "pod"      — (podNamespace, podLabels|podName, direction), inbound ∪
+                 outbound, sum(throughput); start/end time filters do NOT
+                 apply in this mode (reference behavior)
+  * "external" — destinationIP with flowType == 3, sum(throughput)
+  * "svc"      — destinationServicePortName, sum(throughput)
+
+Ordering note: the reference's collect_list order is whatever the shuffle
+produced (nondeterministic); we sort by flowEndSeconds, which is the only
+semantically meaningful order for the time-series detectors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..schema import ColumnarBatch
+from ..store.views import group_reduce
+
+MEANINGLESS_LABELS = (
+    "pod-template-hash",
+    "controller-revision-hash",
+    "pod-template-generation",
+)
+
+
+@dataclasses.dataclass
+class TadQuerySpec:
+    """Mirror of the reference job's query arguments
+    (anomaly_detection.py main:744-778)."""
+    start_time: Optional[int] = None
+    end_time: Optional[int] = None
+    ns_ignore_list: Sequence[str] = ()
+    agg_flow: str = ""          # "", "pod", "external", "svc"
+    pod_label: str = ""
+    pod_name: str = ""
+    pod_namespace: str = ""
+    external_ip: str = ""
+    svc_port_name: str = ""
+    # Scope the query to one cluster's rows in a multicluster store
+    # (rows carry the emitting cluster's UUID, test/e2e_mc). Empty =
+    # all clusters, like the reference job's unfiltered SQL.
+    cluster_uuid: str = ""
+    # ARIMA refit cadence: 1 = the reference's exact refit-per-step
+    # (anomaly_detection.py:246-253), k>1 = grouped refits (fit reused
+    # for k consecutive steps, a k× compute cut on long series), 0 =
+    # auto (max(1, T // 2048), sized so 24h@1s series stay feasible).
+    # Ignored by EWMA/DBSCAN. The effective value is emitted in every
+    # ARIMA result row as `refitEvery`.
+    refit_every: int = 1
+
+    @property
+    def agg_type(self) -> str:
+        return self.agg_flow if self.agg_flow else "None"
+
+
+@dataclasses.dataclass
+class SeriesBatch:
+    """Padded series: values/times [S, T], mask [S, T]; one key row per
+    series in `keys` (decoded strings for string keys)."""
+    key_names: Tuple[str, ...]
+    keys: Dict[str, np.ndarray]
+    values: np.ndarray
+    times: np.ndarray
+    mask: np.ndarray
+    agg_type: str
+
+    @property
+    def n_series(self) -> int:
+        return self.values.shape[0]
+
+
+def _codes_for_strings(batch: ColumnarBatch, name: str,
+                       values: Sequence[str]) -> List[int]:
+    """Codes of `values` in the batch's dictionary (missing → -1 which
+    matches nothing)."""
+    d = batch.dicts[name]
+    out = []
+    for v in values:
+        code = d.lookup(v)
+        out.append(-1 if code is None else code)
+    return out
+
+
+def _ns_ignore_mask(batch: ColumnarBatch,
+                    ns_ignore_list: Sequence[str]) -> np.ndarray:
+    """sourcePodNamespace NOT IN (...) AND destinationPodNamespace NOT IN
+    (...) (reference :549-553, :576-580)."""
+    mask = np.ones(len(batch), dtype=bool)
+    if not ns_ignore_list:
+        return mask
+    for col in ("sourcePodNamespace", "destinationPodNamespace"):
+        codes = np.asarray(
+            _codes_for_strings(batch, col, ns_ignore_list), np.int64)
+        mask &= ~np.isin(np.asarray(batch[col], np.int64), codes)
+    return mask
+
+
+def _label_substring_codes(batch: ColumnarBatch, col: str,
+                           needle: str) -> np.ndarray:
+    """Codes whose decoded string contains `needle` case-insensitively
+    (the reference's ilike '%needle%')."""
+    d = batch.dicts[col]
+    low = needle.lower()
+    return np.asarray(
+        [i for i, s in enumerate(d._strings) if low in s.lower()],
+        np.int64)
+
+
+def _pack_and_pad(key_mat: np.ndarray, t: np.ndarray, v: np.ndarray,
+                  dtype=np.float64):
+    """Group rows by key, sort each group by time, pad to [S, T_max]."""
+    n = key_mat.shape[0]
+    if n == 0:
+        return (np.zeros((0, key_mat.shape[1]), np.int64),
+                np.zeros((0, 0), dtype),
+                np.zeros((0, 0), np.int64), np.zeros((0, 0), bool))
+    order = np.lexsort((t,) + tuple(key_mat.T[::-1]))
+    sk, st, sv = key_mat[order], t[order], v[order]
+    boundary = np.empty(n, dtype=bool)
+    boundary[0] = True
+    boundary[1:] = np.any(sk[1:] != sk[:-1], axis=1)
+    starts = np.flatnonzero(boundary)
+    group_id = np.cumsum(boundary) - 1
+    lengths = np.diff(np.append(starts, n))
+    S, T = len(starts), int(lengths.max())
+    pos = np.arange(n) - starts[group_id]
+    values = np.zeros((S, T), dtype)
+    times = np.zeros((S, T), np.int64)
+    mask = np.zeros((S, T), bool)
+    values[group_id, pos] = sv.astype(dtype)
+    times[group_id, pos] = st
+    mask[group_id, pos] = True
+    return sk[starts], values, times, mask
+
+
+def _group_and_pad(key_mat: np.ndarray, t: np.ndarray, v: np.ndarray,
+                   op: str, dtype):
+    """Stage-1 (key,time) reduction + ragged→padded packing.
+
+    One seam with two equivalent implementations: the native C++
+    builder (native/seriesbuild.cc — one hash-group pass; the host
+    tensorize hot path) and the numpy lexsort pipeline. Selected by
+    THEIA_NATIVE_SERIES=auto/1/0 (auto = native when available)."""
+    flag = os.environ.get("THEIA_NATIVE_SERIES", "auto").lower()
+    if flag not in ("0", "off", "false"):
+        from ..ingest.native import build_padded_series
+
+        res = build_padded_series(key_mat, t, v, op, dtype)
+        if res is not None:
+            return res
+        if flag in ("1", "on", "true"):
+            raise RuntimeError("THEIA_NATIVE_SERIES=1 but the native "
+                               "library is unavailable")
+    stage1 = np.concatenate([key_mat, t[:, None]], axis=1)
+    gk, gv = group_reduce(stage1, v[:, None], op)
+    return _pack_and_pad(gk[:, :-1], gk[:, -1], gv[:, 0], dtype)
+
+
+def remove_meaningless_labels(labels_json: str) -> str:
+    """Drop autogenerated label keys (reference :631-644); non-JSON
+    input → empty string."""
+    try:
+        d = json.loads(labels_json)
+        if not isinstance(d, dict):
+            return ""
+    except Exception:
+        return ""
+    return json.dumps(
+        {k: v for k, v in d.items() if k not in MEANINGLESS_LABELS},
+        sort_keys=True)
+
+
+def build_series(flows: ColumnarBatch, spec: TadQuerySpec,
+                 dtype=np.float64) -> SeriesBatch:
+    """Build the padded series batch for one TAD query."""
+    base = _ns_ignore_mask(flows, spec.ns_ignore_list)
+    if spec.cluster_uuid:
+        code = flows.dicts["clusterUUID"].lookup(spec.cluster_uuid)
+        base &= (np.asarray(flows["clusterUUID"])
+                 == (-1 if code is None else code))
+    if spec.agg_flow == "pod":
+        return _build_pod_series(flows, spec, base, dtype)
+
+    if spec.start_time is not None:
+        base &= np.asarray(flows["flowStartSeconds"]) >= spec.start_time
+    if spec.end_time is not None:
+        base &= np.asarray(flows["flowEndSeconds"]) < spec.end_time
+
+    if spec.agg_flow == "external":
+        base &= np.asarray(flows["flowType"]) == 3
+        if spec.external_ip:
+            code = flows.dicts["destinationIP"].lookup(spec.external_ip)
+            base &= (np.asarray(flows["destinationIP"])
+                     == (-1 if code is None else code))
+        key_names: Tuple[str, ...] = ("destinationIP",)
+        op = "sum"
+    elif spec.agg_flow == "svc":
+        if spec.svc_port_name:
+            code = flows.dicts["destinationServicePortName"].lookup(
+                spec.svc_port_name)
+            base &= (np.asarray(flows["destinationServicePortName"])
+                     == (-1 if code is None else code))
+        else:
+            base &= np.asarray(flows["destinationServicePortName"]) != 0
+        key_names = ("destinationServicePortName",)
+        op = "sum"
+    else:
+        key_names = ("sourceIP", "sourceTransportPort", "destinationIP",
+                     "destinationTransportPort", "protocolIdentifier",
+                     "flowStartSeconds")
+        op = "max"
+
+    # Materialize only the columns this query touches (masking all 52
+    # through ColumnarBatch.filter costs more than the grouping itself
+    # on the tensorize hot path).
+    col = flows.column_selector(base)
+
+    key_cols = np.stack([col(c) for c in key_names], axis=1)
+    key_mat, values, times, mask = _group_and_pad(
+        key_cols, col("flowEndSeconds"), col("throughput"), op, dtype)
+    keys = _decode_keys(flows, key_names, key_mat)
+    return SeriesBatch(key_names, keys, values, times, mask, spec.agg_type)
+
+
+def _build_pod_series(flows: ColumnarBatch, spec: TadQuerySpec,
+                      base: np.ndarray, dtype) -> SeriesBatch:
+    """Inbound ∪ outbound pod aggregation (reference :511-565)."""
+    by_name = bool(spec.pod_name)
+    parts = []  # (keys [n,2], time, thr, direction_id)
+    for direction, ns_col, id_col in (
+            ("inbound", "destinationPodNamespace",
+             "destinationPodName" if by_name else "destinationPodLabels"),
+            ("outbound", "sourcePodNamespace",
+             "sourcePodName" if by_name else "sourcePodLabels")):
+        m = base.copy()
+        if by_name:
+            code = flows.dicts[id_col].lookup(spec.pod_name)
+            m &= np.asarray(flows[id_col]) == (
+                -1 if code is None else code)
+        elif spec.pod_label:
+            codes = _label_substring_codes(flows, id_col, spec.pod_label)
+            m &= np.isin(np.asarray(flows[id_col], np.int64), codes)
+        else:
+            m &= np.asarray(flows[id_col]) != 0  # labels <> ''
+        if spec.pod_namespace:
+            code = flows.dicts[ns_col].lookup(spec.pod_namespace)
+            m &= np.asarray(flows[ns_col]) == (
+                -1 if code is None else code)
+        col = flows.column_selector(m)
+
+        keys = np.stack([col(ns_col), col(id_col)], axis=1)
+        parts.append((keys, col("flowEndSeconds"), col("throughput"),
+                      direction))
+
+    id_name = "podName" if by_name else "podLabels"
+    key_names = ("podNamespace", id_name, "direction")
+    dir_code = {"inbound": 0, "outbound": 1}
+    all_keys = np.concatenate(
+        [np.concatenate(
+            [k, np.full((k.shape[0], 1), dir_code[d], np.int64)], axis=1)
+         for k, _, _, d in parts], axis=0)
+    all_t = np.concatenate([t for _, t, _, _ in parts])
+    all_v = np.concatenate([v for _, _, v, _ in parts])
+
+    key_mat, values, times, mask = _group_and_pad(
+        all_keys, all_t, all_v, "sum", dtype)
+
+    ns_dict = flows.dicts["destinationPodNamespace"]
+    id_dict = flows.dicts[
+        ("destinationPodName" if by_name else "destinationPodLabels")]
+    # Source- and destination-side columns share string values but not
+    # dictionaries; decode via the side each row came from is impossible
+    # after the union, so decode against a merged lookup.
+    src_ns = flows.dicts["sourcePodNamespace"]
+    src_id = flows.dicts[
+        "sourcePodName" if by_name else "sourcePodLabels"]
+
+    def dual_decode(codes, primary, secondary, is_outbound):
+        out = np.empty(len(codes), dtype=object)
+        for i, (c, ob) in enumerate(zip(codes, is_outbound)):
+            d = secondary if ob else primary
+            out[i] = d.decode_one(int(c))
+        return out
+
+    is_outbound = key_mat[:, 2] == 1
+    ns_strings = dual_decode(key_mat[:, 0], ns_dict, src_ns, is_outbound)
+    id_strings = dual_decode(key_mat[:, 1], id_dict, src_id, is_outbound)
+    if not by_name:
+        # remove_meaningless_labels UDF applies in the label mode
+        # (reference :687-695)
+        id_strings = np.asarray(
+            [remove_meaningless_labels(s) for s in id_strings],
+            dtype=object)
+    keys = {
+        "podNamespace": ns_strings,
+        id_name: id_strings,
+        "direction": np.where(is_outbound, "outbound", "inbound").astype(
+            object),
+    }
+    return SeriesBatch(key_names, keys, values, times, mask, "pod")
+
+
+def _decode_keys(flows: ColumnarBatch, key_names, key_mat) -> Dict[
+        str, np.ndarray]:
+    keys: Dict[str, np.ndarray] = {}
+    for i, name in enumerate(key_names):
+        col = key_mat[:, i] if key_mat.size else np.zeros(
+            key_mat.shape[0], np.int64)
+        if name in flows.dicts:
+            keys[name] = flows.dicts[name].decode(col)
+        else:
+            keys[name] = col
+    return keys

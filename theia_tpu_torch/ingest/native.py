@@ -1,0 +1,723 @@
+"""Native (C++) TSV flow-record decoder, with a pure-Python fallback.
+
+The ingest contract (SURVEY §7 step 2): wire bytes → fixed-width
+columnar arrays + shared string dictionaries, fast enough that the
+storage tier — not the parser — is the bottleneck. The reference leans
+on ClickHouse's C++ parsers for this; here it's native/flowblock.cc
+loaded via ctypes (no pybind11 in the image), compiled on first use
+with g++ -O3.
+
+Wire format: TabSeparated rows in flow-schema column order (the same
+shape a ClickHouse `INSERT ... FORMAT TabSeparated` carries, and what
+`encode_tsv` emits for tests/benchmarks).
+
+Dictionary discipline: the decoder owns per-column hash tables seeded
+from the store's StringDictionary; after each decode the newly minted
+codes are replayed into the Python dictionary in order, so both sides
+agree code-for-code and batches drop into the store with zero
+re-encoding.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+from ..analysis.lockdep import named_lock
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..schema import FLOW_SCHEMA, ColumnarBatch, StringDictionary
+from ..schema.flow_schema import ColumnKind
+from ..store import wire as _wire
+
+_KIND_CODE = {"int": 0, "float": 1, "string": 2}
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_SRC = os.path.join(_REPO_ROOT, "native", "flowblock.cc")
+_SRC_SERIES = os.path.join(_REPO_ROOT, "native", "seriesbuild.cc")
+_SRC_GROUPSUM = os.path.join(_REPO_ROOT, "native", "groupsum.cc")
+_ALL_SRCS = (_SRC, _SRC_SERIES, _SRC_GROUPSUM)
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "_build")
+
+
+def _so_path() -> str:
+    """Content-hashed artifact name: a stale .so can never be picked up
+    (and dlopen caches by pathname, so rebuilding under the SAME name
+    would return the already-loaded stale handle — the name must
+    change with the sources)."""
+    import hashlib
+    h = hashlib.sha1()
+    for src in _ALL_SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD_DIR, f"flowblock-{h.hexdigest()[:12]}.so")
+
+_lib_lock = named_lock("native.lib")
+_lib: Optional[ctypes.CDLL] = None
+_build_error: Optional[str] = None
+
+
+def _column_kind_code(col) -> int:
+    if col.is_string:
+        return _KIND_CODE["string"]
+    if col.kind == ColumnKind.F64:
+        return _KIND_CODE["float"]
+    return _KIND_CODE["int"]
+
+
+def _load_library() -> Optional[ctypes.CDLL]:
+    """Build (if needed) and load the native decoder; None on failure."""
+    global _lib, _build_error
+    with _lib_lock:
+        if _lib is not None or _build_error is not None:
+            return _lib
+        try:
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            so = _so_path()
+            if not os.path.exists(so):
+                _compile(so)
+            _lib = _bind(ctypes.CDLL(so))
+        except (OSError, subprocess.CalledProcessError,
+                AttributeError) as e:
+            detail = getattr(e, "stderr", "") or str(e)
+            _build_error = f"native ingest unavailable: {detail}"
+        return _lib
+
+
+def _compile(so: str) -> None:
+    # Per-process scratch name, atomically published: a concurrent
+    # builder racing on a shared tmp path could otherwise publish a
+    # half-written .so under the content-hashed (never-rebuilt) name.
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+             "-o", tmp, *_ALL_SRCS],
+            check=True, capture_output=True, text=True)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib.fb_new.restype = ctypes.c_void_p
+    lib.fb_new.argtypes = [ctypes.c_int32,
+                           ctypes.POINTER(ctypes.c_int32)]
+    lib.fb_seed.argtypes = [ctypes.c_void_p, ctypes.c_int32,
+                            ctypes.c_char_p, ctypes.c_int64]
+    lib.fb_decode.restype = ctypes.c_int64
+    lib.fb_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.fb_decode_block.restype = ctypes.c_int64
+    lib.fb_decode_block.argtypes = lib.fb_decode.argtypes
+    lib.fb_decode_block2.restype = ctypes.c_int64
+    lib.fb_decode_block2.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_void_p)]
+    lib.fb_dict_size.restype = ctypes.c_int64
+    lib.fb_dict_size.argtypes = [ctypes.c_void_p,
+                                 ctypes.c_int32]
+    lib.fb_dict_get.restype = ctypes.c_void_p
+    lib.fb_dict_get.argtypes = [
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.fb_free.argtypes = [ctypes.c_void_p]
+    lib.sb_build.restype = ctypes.c_void_p
+    lib.sb_build.argtypes = [
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int32]
+    lib.sb_dims.argtypes = [ctypes.c_void_p,
+                            ctypes.POINTER(ctypes.c_int64),
+                            ctypes.POINTER(ctypes.c_int64)]
+    lib.sb_fill.argtypes = [
+        ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_uint8)]
+    lib.sb_free.argtypes = [ctypes.c_void_p]
+    lib.gs_build.restype = ctypes.c_void_p
+    lib.gs_build.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int32]
+    lib.gs_dims.argtypes = [ctypes.c_void_p,
+                            ctypes.POINTER(ctypes.c_int64)]
+    lib.gs_fill.argtypes = [ctypes.c_void_p,
+                            ctypes.POINTER(ctypes.c_int64),
+                            ctypes.POINTER(ctypes.c_int64)]
+    lib.gs_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def native_available() -> bool:
+    return _load_library() is not None
+
+
+class TsvDecoder:
+    """Decode TabSeparated flow rows into ColumnarBatches.
+
+    Uses the native decoder when available, else the Python fallback.
+    Dictionaries passed in are kept in sync (codes match exactly).
+    """
+
+    def __init__(self, schema=FLOW_SCHEMA,
+                 dicts: Optional[Dict[str, StringDictionary]] = None,
+                 force_python: bool = False) -> None:
+        self.schema = schema
+        self.dicts = dict(dicts or {})
+        for col in schema:
+            if col.is_string:
+                self.dicts.setdefault(col.name, StringDictionary())
+        self._numeric_cols = [c for c in schema if not c.is_string]
+        self._string_cols = [c for c in schema if c.is_string]
+        # Per-column plane width/dtype for the TFB2 wire format: string
+        # codes are int32, numerics travel at their host width.
+        self._col_dtype = [np.dtype(np.int32) if c.is_string
+                           else np.dtype(c.host_dtype) for c in schema]
+        self._col_width = [d.itemsize for d in self._col_dtype]
+        self._widths_arr = (ctypes.c_int32 * len(schema))(
+            *self._col_width)
+        self._lib = None if force_python else _load_library()
+        self._handle = None
+        # How many python-dictionary entries the native side has seen,
+        # per column index — lets each decode() replay entries added by
+        # OTHER ingest paths (from_rows, a second decoder) before
+        # parsing, so codes never diverge.
+        self._synced_len: Dict[int, int] = {}
+        if self._lib is not None:
+            kinds = (ctypes.c_int32 * len(schema))(
+                *[_column_kind_code(c) for c in schema])
+            self._handle = self._lib.fb_new(len(schema), kinds)
+            for i, col in enumerate(schema):
+                if col.is_string:
+                    self._synced_len[i] = 0
+            self._push_python_dicts()
+
+    def __del__(self):
+        if getattr(self, "_handle", None) and self._lib is not None:
+            self._lib.fb_free(self._handle)
+            self._handle = None
+
+    @property
+    def is_native(self) -> bool:
+        return self._handle is not None
+
+    def decode(self, payload: bytes,
+               max_rows: Optional[int] = None) -> ColumnarBatch:
+        """Decode a TSV payload. `max_rows` is a hard bound: exceeding
+        it raises (identically on both paths) rather than silently
+        truncating."""
+        stripped = payload.strip(b"\n")
+        # bytes.count, not split: splitting an 80 MiB payload into row
+        # objects just to count them costs more than the native parse.
+        n_rows = (stripped.count(b"\n") + 1) if stripped else 0
+        if max_rows is not None and n_rows > max_rows:
+            raise ValueError(
+                f"payload has {n_rows} rows, max_rows={max_rows}")
+        if self._handle is not None:
+            return self._decode_native(payload, max(n_rows, 1))
+        return self._decode_python(payload)
+
+    # -- native path -----------------------------------------------------
+
+    def _push_python_dicts(self) -> None:
+        """Seed entries other ingest paths added to the shared Python
+        dictionaries since the last decode; afterwards both sides hold
+        identical code tables (native never leads Python: its minted
+        codes are replayed back in _sync_dicts)."""
+        for i, col in enumerate(self.schema):
+            if not col.is_string:
+                continue
+            d = self.dicts[col.name]
+            start = self._synced_len[i]
+            pending = d.entries_since(start)
+            for s in pending:
+                raw = s.encode()
+                self._lib.fb_seed(self._handle, i, raw, len(raw))
+            self._synced_len[i] = start + len(pending)
+            native_n = self._lib.fb_dict_size(self._handle, i)
+            if native_n != self._synced_len[i]:
+                raise RuntimeError(
+                    f"dictionary desync on {col.name}: python "
+                    f"{self._synced_len[i]} entries, native {native_n}")
+
+    def _decode_native(self, payload: bytes,
+                       max_rows: int) -> ColumnarBatch:
+        self._push_python_dicts()
+        n_num = len(self._numeric_cols)
+        n_str = len(self._string_cols)
+        # empty, not zeros: the decoder writes every cell of each parsed
+        # row, and only [:n] is read back.
+        ints = np.empty((n_num, max_rows), np.int64)
+        codes = np.empty((n_str, max_rows), np.int32)
+        n = self._lib.fb_decode(
+            self._handle, payload, len(payload), max_rows,
+            ints.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        if n < 0:
+            raise ValueError(f"malformed TSV at row {-(n + 1)}")
+        self._sync_dicts()
+        return self._planes_to_batch(ints, codes, int(n))
+
+    def _planes_to_batch(self, ints: np.ndarray, codes: np.ndarray,
+                         n: int) -> ColumnarBatch:
+        cols: Dict[str, np.ndarray] = {}
+        num_i = str_i = 0
+        for col in self.schema:
+            if col.is_string:
+                cols[col.name] = codes[str_i, :n].copy()
+                str_i += 1
+            elif col.kind == ColumnKind.F64:
+                cols[col.name] = ints[num_i, :n].view(np.float64).copy()
+                num_i += 1
+            else:
+                cols[col.name] = ints[num_i, :n].astype(col.host_dtype)
+                num_i += 1
+        return ColumnarBatch(cols, self.dicts)
+
+    # -- binary columnar blocks ------------------------------------------
+
+    def decode_block(self, payload: bytes) -> ColumnarBatch:
+        """Decode one BLOCK_MAGIC binary columnar block (see
+        encode_block) — the fast wire path: raw column planes are
+        bulk-copied, with only the dictionary *delta* carried as text.
+        Analogue of ClickHouse's column-major native protocol, which is
+        how the reference's FlowAggregator actually inserts
+        (clickhouse-go `tcp://…:9000`, pkg/util/clickhouse/clickhouse.go:125).
+        """
+        if len(payload) < 16 or payload[:4] not in (BLOCK_MAGIC,
+                                                    BLOCK_MAGIC_V1):
+            raise ValueError("not a flow block payload")
+        v2 = payload[:4] == BLOCK_MAGIC
+        n_rows = int(np.frombuffer(payload, np.int64, 1, 4)[0])
+        # Output allocation is sized from the header, so sanity-bound it
+        # against what the payload could possibly carry before trusting
+        # a (possibly corrupt/hostile) row count.
+        row_bytes = sum(self._col_width) if v2 else (
+            8 * len(self._numeric_cols) + 4 * len(self._string_cols))
+        if n_rows < 0 or n_rows * row_bytes > len(payload):
+            raise ValueError(
+                f"flow block claims {n_rows} rows but carries only "
+                f"{len(payload)} bytes")
+        if self._handle is not None and v2:
+            return self._decode_block2_native(payload, n_rows)
+        if self._handle is not None:
+            self._push_python_dicts()
+            ints = np.empty((len(self._numeric_cols), max(n_rows, 1)),
+                            np.int64)
+            codes = np.empty((len(self._string_cols), max(n_rows, 1)),
+                             np.int32)
+            n = self._lib.fb_decode_block(
+                self._handle, payload, len(payload), max(n_rows, 1),
+                ints.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+            # The native decoder validates the whole block before
+            # mutating any state, so every error leaves the decoder
+            # (and the shared dictionaries) untouched.
+            if n < 0:
+                raise ValueError(self._BLOCK_ERRORS.get(
+                    n, f"malformed flow block ({n})"))
+            self._sync_dicts()
+            return self._planes_to_batch(ints, codes, int(n))
+        return self._decode_block_python(payload, n_rows, v2)
+
+    _BLOCK_ERRORS = {
+        -2: "dictionary desync: block's delta base does not match the "
+            "decoder's dictionary (blocks must be decoded in stream "
+            "order)",
+        -4: "flow block carries string codes outside its dictionary",
+        -5: "dictionary desync: block's delta repeats an existing or "
+            "intra-delta entry",
+    }
+
+    def _decode_block2_native(self, payload: bytes,
+                              n_rows: int) -> ColumnarBatch:
+        """TFB2 fast path: planes land directly in the final per-column
+        arrays (no widening buffer, no re-narrowing pass). All columns
+        live in ONE allocation (8-byte-aligned slices) — one np.empty
+        instead of 52 per block."""
+        self._push_python_dicts()
+        n = max(n_rows, 1)
+        offsets = []
+        total = 0
+        for w in self._col_width:
+            total = (total + 7) & ~7      # keep every slice 8B-aligned
+            offsets.append(total)
+            total += n * w
+        buf = np.empty(total, np.uint8)
+        arrays = [np.frombuffer(buf.data, dt, n, off)
+                  for dt, off in zip(self._col_dtype, offsets)]
+        base = buf.ctypes.data
+        out = (ctypes.c_void_p * len(arrays))(
+            *[base + off for off in offsets])
+        n = self._lib.fb_decode_block2(
+            self._handle, payload, len(payload), max(n_rows, 1),
+            self._widths_arr, out)
+        if n < 0:
+            raise ValueError(self._BLOCK_ERRORS.get(
+                n, f"malformed flow block ({n})"))
+        self._sync_dicts()
+        return ColumnarBatch(
+            {col.name: arr[:n] for col, arr in zip(self.schema, arrays)},
+            self.dicts)
+
+    def _decode_block_python(self, payload: bytes, n_rows: int,
+                             v2: bool = True) -> ColumnarBatch:
+        """Mirrors the native decoder's discipline: the whole block is
+        parsed and validated into locals first; the shared dictionaries
+        are only touched once nothing can fail."""
+        off = 12
+        n_cols = int(np.frombuffer(payload, np.int32, 1, off)[0])
+        off += 4
+        if n_cols != len(self.schema):
+            raise ValueError(
+                f"block has {n_cols} columns, schema has "
+                f"{len(self.schema)}")
+        deltas: Dict[str, list] = {}
+        limits: Dict[str, int] = {}
+        for col in self._string_cols:
+            if off + 8 > len(payload):
+                raise ValueError("malformed flow block (truncated)")
+            base, count = np.frombuffer(payload, np.int32, 2, off)
+            off += 8
+            if count < 0:
+                raise ValueError("malformed flow block (bad delta)")
+            d = self.dicts[col.name]
+            if int(base) != len(d):
+                raise ValueError(
+                    "dictionary desync: block's delta base does not "
+                    "match the decoder's dictionary (blocks must be "
+                    "decoded in stream order)")
+            entries = []
+            seen = set()
+            for _ in range(int(count)):
+                if off + 4 > len(payload):
+                    raise ValueError(
+                        "malformed flow block (truncated)")
+                ln = int(np.frombuffer(payload, np.int32, 1, off)[0])
+                off += 4
+                if ln < 0 or off + ln > len(payload):
+                    raise ValueError(
+                        "malformed flow block (truncated)")
+                s = payload[off:off + ln].decode()
+                off += ln
+                # novelty: a duplicate (of an existing entry or within
+                # the delta) would desync the append-only code sequence
+                if d.lookup(s) is not None or s in seen:
+                    raise ValueError(
+                        f"dictionary desync on {col.name}: delta "
+                        f"repeats entry {s!r}")
+                seen.add(s)
+                entries.append(s)
+            deltas[col.name] = entries
+            limits[col.name] = int(base) + len(entries)
+        cols: Dict[str, np.ndarray] = {}
+        for i, col in enumerate(self.schema):
+            if v2:
+                width, dtype = self._col_width[i], self._col_dtype[i]
+            else:
+                width = 4 if col.is_string else 8
+                dtype = np.int32 if col.is_string else np.int64
+            if off + n_rows * width > len(payload):
+                raise ValueError("malformed flow block (truncated)")
+            if col.is_string:
+                codes = np.frombuffer(payload, np.int32, n_rows,
+                                      off).copy()
+                if len(codes) and (codes.min() < 0
+                                   or codes.max() >= limits[col.name]):
+                    raise ValueError(
+                        "flow block carries string codes outside its "
+                        "dictionary")
+                cols[col.name] = codes
+            elif v2:
+                cols[col.name] = np.frombuffer(payload, dtype, n_rows,
+                                               off).copy()
+            else:
+                raw = np.frombuffer(payload, np.int64, n_rows, off)
+                if col.kind == ColumnKind.F64:
+                    cols[col.name] = raw.view(np.float64).copy()
+                else:
+                    cols[col.name] = raw.astype(col.host_dtype)
+            off += n_rows * width
+        # -- commit: everything validated, now mint the delta entries.
+        for col in self._string_cols:
+            d = self.dicts[col.name]
+            base = limits[col.name] - len(deltas[col.name])
+            for i, s in enumerate(deltas[col.name]):
+                code = d.encode_one(s)
+                if code != base + i:
+                    raise ValueError(
+                        f"dictionary desync on {col.name}: {s!r} -> "
+                        f"{code}, expected {base + i}")
+        return ColumnarBatch(cols, self.dicts)
+
+    def _sync_dicts(self) -> None:
+        """Replay codes minted by the native decoder into the Python
+        dictionaries, preserving code order."""
+        for i, col in enumerate(self.schema):
+            if not col.is_string:
+                continue
+            d = self.dicts[col.name]
+            native_n = self._lib.fb_dict_size(self._handle, i)
+            for idx in range(self._synced_len[i], native_n):
+                ln = ctypes.c_int64()
+                ptr = self._lib.fb_dict_get(self._handle, i, idx,
+                                            ctypes.byref(ln))
+                s = ctypes.string_at(ptr, ln.value).decode()
+                code = d.encode_one(s)
+                if code != idx:
+                    raise RuntimeError(
+                        f"dictionary desync on {col.name}: {s!r} -> "
+                        f"{code}, native {idx}")
+            self._synced_len[i] = native_n
+
+    # -- python fallback -------------------------------------------------
+
+    def _decode_python(self, payload: bytes) -> ColumnarBatch:
+        lines = [ln for ln in payload.split(b"\n") if ln]
+        n = len(lines)
+        fields = [ln.split(b"\t") for ln in lines]
+        cols: Dict[str, np.ndarray] = {}
+        for i, col in enumerate(self.schema):
+            raw = [f[i] if i < len(f) else b"" for f in fields]
+            if col.is_string:
+                d = self.dicts[col.name]
+                cols[col.name] = d.encode(
+                    [r.decode() for r in raw]) if n else np.zeros(
+                        0, np.int32)
+            elif col.kind == ColumnKind.F64:
+                cols[col.name] = np.asarray(
+                    [float(r) if r else 0.0 for r in raw], np.float64)
+            else:
+                cols[col.name] = np.asarray(
+                    [int(r) if r else 0 for r in raw], col.host_dtype)
+        return ColumnarBatch(cols, self.dicts)
+
+
+# Current wire format: TFB2 (native-width column planes). TFB1 blocks
+# (8-byte-widened numeric planes) are still accepted on decode.
+BLOCK_MAGIC = b"TFB2"
+BLOCK_MAGIC_V1 = b"TFB1"
+
+
+class BlockEncoder:
+    """Producer side of the binary columnar block format.
+
+    Tracks, per string column, how many dictionary entries the receiving
+    decoder has already seen; each block carries only the delta. Blocks
+    from one encoder must be decoded in order by one decoder (the same
+    discipline as a ClickHouse native-protocol connection).
+    """
+
+    def __init__(self, schema=FLOW_SCHEMA,
+                 dicts: Optional[Dict[str, StringDictionary]] = None
+                 ) -> None:
+        self.schema = schema
+        self.dicts = dict(dicts or {})
+        for col in schema:
+            if col.is_string:
+                self.dicts.setdefault(col.name, StringDictionary())
+        # Every StringDictionary (Python and native) is born with "" at
+        # code 0, so the first delta starts at entry 1.
+        self._sent = {c.name: 1 for c in schema if c.is_string}
+
+    def encode(self, batch: ColumnarBatch) -> bytes:
+        """Render a batch as one block. The batch's string columns must
+        be coded against this encoder's dictionaries; foreign-dictionary
+        batches are re-encoded transparently."""
+        n_rows = len(batch)
+        parts = [BLOCK_MAGIC,
+                 np.int64(n_rows).tobytes(),
+                 np.int32(len(self.schema)).tobytes()]
+        code_cols: Dict[str, np.ndarray] = {}
+        for col in self.schema:
+            if not col.is_string:
+                continue
+            d = self.dicts[col.name]
+            if batch.dicts.get(col.name) is d:
+                code_cols[col.name] = np.asarray(batch[col.name],
+                                                 np.int32)
+            else:   # re-encode against our dictionary
+                code_cols[col.name] = d.encode(
+                    list(batch.strings(col.name))).astype(np.int32)
+            base = self._sent[col.name]
+            delta = d.entries_since(base)
+            parts.append(np.asarray([base, len(delta)],
+                                    np.int32).tobytes())
+            for s in delta:
+                raw = s.encode()
+                parts.append(np.int32(len(raw)).tobytes())
+                parts.append(raw)
+            self._sent[col.name] = base + len(delta)
+        for col in self.schema:
+            if col.is_string:
+                parts.append(np.ascontiguousarray(
+                    code_cols[col.name], np.int32).tobytes())
+            else:
+                # TFB2: numerics travel at their host width.
+                parts.append(np.ascontiguousarray(
+                    batch[col.name], col.host_dtype).tobytes())
+        return b"".join(parts)
+
+
+# TFB3 / "TBLK": the self-contained columnar block format
+# (store/wire.py — the same bytes the WAL journals and parts store).
+# Unlike TFB2 there is NO per-connection dictionary delta chain: every
+# block carries its own batch-unique strings, so blocks from any
+# number of producers decode statelessly, in any order, on any shard —
+# and the receiver journals the column bytes verbatim instead of
+# decode→re-encode. The server content-negotiates per request by
+# magic; THEIA_INGEST_FORMAT picks the producer-side default
+# (ingest/client.py).
+TBLK_MAGIC = _wire.BLOCK_MAGIC
+decode_tblk = _wire.decode_block
+
+
+class TblkEncoder:
+    """Producer side of the TFB3/TBLK block format — `encode(batch)`
+    API-compatible with `BlockEncoder` so producers swap by
+    constructor. Stateless (no delta cursors): one encoder may serve
+    any number of connections concurrently, and a retried block is
+    byte-identical regardless of what was sent in between."""
+
+    def __init__(self, schema=FLOW_SCHEMA,
+                 dicts: Optional[Dict[str, StringDictionary]] = None
+                 ) -> None:
+        self.schema = schema
+        self.dicts = dict(dicts or {})
+        for col in schema:
+            if col.is_string:
+                self.dicts.setdefault(col.name, StringDictionary())
+
+    def encode(self, batch: ColumnarBatch) -> bytes:
+        """Render a batch as one self-contained block. String columns
+        missing a dictionary on the batch fall back to this encoder's
+        (they must be coded against it — same contract as sharing a
+        dictionary with BlockEncoder)."""
+        missing = [c.name for c in self.schema
+                   if c.is_string and c.name in batch.columns
+                   and c.name not in batch.dicts]
+        if missing:
+            batch = ColumnarBatch(
+                batch.columns,
+                {**{n: self.dicts[n] for n in missing}, **batch.dicts})
+        return _wire.encode_block(batch)
+
+
+def encode_tsv(batch: ColumnarBatch, schema=FLOW_SCHEMA) -> bytes:
+    """Render a batch as TabSeparated wire bytes (tests/benchmarks)."""
+    columns = []
+    for col in schema:
+        if col.is_string:
+            columns.append(batch.strings(col.name))
+        else:
+            columns.append(batch[col.name])
+    rows = []
+    for i in range(len(batch)):
+        rows.append("\t".join(str(c[i]) for c in columns))
+    return ("\n".join(rows) + "\n").encode()
+
+
+def build_padded_series(keys: np.ndarray, times: np.ndarray,
+                        values: np.ndarray, op: str,
+                        dtype=np.float64):
+    """Native tensorize: group rows by [n, k] int64 key tuples into
+    padded per-series time arrays (native/seriesbuild.cc).
+
+    Returns (key_mat [S,k] int64, values [S,T] dtype, times [S,T] int64,
+    mask [S,T] bool) with series in lexicographic key order and points
+    in time order — bit-identical to the numpy group_reduce +
+    _pack_and_pad path in analytics/series.py. Duplicate (key, time)
+    rows reduce with `op` ("max" or "sum"). Returns None when the
+    native library is unavailable (caller falls back to numpy).
+    """
+    lib = _load_library()
+    if lib is None:
+        return None
+    keys = np.ascontiguousarray(keys, np.int64)
+    times = np.ascontiguousarray(times, np.int64)
+    values = np.ascontiguousarray(values, np.int64)
+    n, k = keys.shape
+    handle = lib.sb_build(
+        keys.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        times.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        values.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        n, k, 0 if op == "max" else 1)
+    try:
+        S = ctypes.c_int64()
+        T = ctypes.c_int64()
+        lib.sb_dims(handle, ctypes.byref(S), ctypes.byref(T))
+        s, t = S.value, T.value
+        key_mat = np.empty((s, k), np.int64)
+        vals = np.empty((s, t), np.float64)
+        ts = np.empty((s, t), np.int64)
+        mask = np.empty((s, t), np.uint8)
+        lib.sb_fill(
+            handle,
+            key_mat.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            ts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    finally:
+        lib.sb_free(handle)
+    return key_mat, vals.astype(dtype, copy=False), ts, \
+        mask.astype(bool)
+
+
+def native_group_sum(key_cols, value_cols):
+    """Native GROUP BY...SUM over column arrays (native/groupsum.cc):
+    one hash pass, no sort, no row-major staging in Python — the
+    materialized-view insert hot path. Group order is arbitrary
+    (SummingMergeTree parts are re-grouped exactly at read time).
+
+    key_cols / value_cols: sequences of 1-D int32/int64 arrays of equal
+    length. Returns (keys [g,k] int64, sums [g,m] int64), or None when
+    the native library is unavailable.
+    """
+    lib = _load_library()
+    if lib is None:
+        return None
+    key_cols = [np.ascontiguousarray(a) for a in key_cols]
+    value_cols = [np.ascontiguousarray(a) for a in value_cols]
+    for a in (*key_cols, *value_cols):
+        if a.dtype not in (np.dtype(np.int32), np.dtype(np.int64)):
+            return None   # unexpected dtype → numpy fallback
+    n = len(key_cols[0]) if key_cols else 0
+    for a in (*key_cols, *value_cols):
+        if len(a) != n:  # C reads n cells per column — no OOB reads
+            raise ValueError(
+                f"column length mismatch: {len(a)} != {n}")
+    k, m = len(key_cols), len(value_cols)
+    kp = (ctypes.c_void_p * k)(*[a.ctypes.data for a in key_cols])
+    kw = (ctypes.c_int32 * k)(*[a.dtype.itemsize for a in key_cols])
+    vp = (ctypes.c_void_p * max(m, 1))(
+        *[a.ctypes.data for a in value_cols])
+    vw = (ctypes.c_int32 * max(m, 1))(
+        *[a.dtype.itemsize for a in value_cols])
+    handle = lib.gs_build(kp, kw, n, k, vp, vw, m)
+    try:
+        g = ctypes.c_int64()
+        lib.gs_dims(handle, ctypes.byref(g))
+        keys = np.empty((g.value, k), np.int64)
+        sums = np.empty((g.value, m), np.int64)
+        lib.gs_fill(
+            handle,
+            keys.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            sums.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    finally:
+        lib.gs_free(handle)
+    return keys, sums

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -66,8 +67,11 @@ def _compile(name: str, src: Path, path: Path) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name`, built at first use."""
+    """The loaded kernel library `name`, built at first use. Libraries
+    of different names build in parallel when asked from threads."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             src, path = _target(name)

@@ -1,0 +1,268 @@
+"""Streaming materialized views over the flows table.
+
+Re-provides the reference's three SummingMergeTree materialized views
+(build/charts/theia/provisioning/datasources/create_table.sh:92-351):
+
+  * flows_pod_view    — per-pod aggregation       (create_table.sh:92-175)
+  * flows_node_view   — per-node aggregation      (create_table.sh:178-241)
+  * flows_policy_view — per-NetworkPolicy totals  (create_table.sh:244-351)
+
+Semantics match ClickHouse: each *insert block* is grouped by the view's
+key columns with the metric columns summed (the MV GROUP BY runs per
+block); further collapsing of identical keys across blocks happens at
+"merge" time — here `compact()`, called automatically on read. All group
+keys are integers (dictionary codes for strings), so the per-block group-by
+is one lexsort + reduceat over fixed-width arrays — no Python-object work
+on the ingest path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from ..schema import ColumnarBatch, StringDictionary
+from ..analysis.lockdep import named_lock
+
+
+def group_reduce(keys: np.ndarray, values: np.ndarray, op: str = "sum"
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Vectorized GROUP BY: `keys` [n,k] int64, `values` [n,m].
+
+    `op` is "sum" or "max". Returns (unique_keys [g,k], reduced [g,m])
+    with groups in lexicographic order. This is the host-side analogue of
+    the on-device segment reductions the analytics jobs use; lexsort +
+    reduceat keeps it allocation-lean.
+    """
+    n = keys.shape[0]
+    if n == 0:
+        return keys, values
+    order = np.lexsort(keys.T[::-1])
+    sk = keys[order]
+    sv = values[order]
+    boundary = np.empty(n, dtype=bool)
+    boundary[0] = True
+    boundary[1:] = np.any(sk[1:] != sk[:-1], axis=1)
+    starts = np.flatnonzero(boundary)
+    ufunc = np.add if op == "sum" else np.maximum
+    reduced = ufunc.reduceat(sv, starts, axis=0)
+    return sk[starts], reduced
+
+
+def group_sum(keys: np.ndarray, values: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    return group_reduce(keys, values, "sum")
+
+
+def group_sum_fast(keys: np.ndarray, values: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-insert-block GROUP BY for the MV hot path: sort by a single
+    64-bit row hash instead of lexsorting 15-20 key columns (~20x less
+    sort work). Output group ORDER is arbitrary, and a hash collision
+    between distinct keys may split a group into two rows — both are
+    fine for a SummingMergeTree part: `compact()`/`_merged` re-groups
+    exactly (lexsort) at read time, which is also where ClickHouse
+    collapses part rows. Do NOT use where callers rely on lexicographic
+    group order (use group_reduce)."""
+    n = keys.shape[0]
+    if n == 0:
+        return keys, values
+    h = np.full(n, 0xcbf29ce484222325, np.uint64)
+    for i in range(keys.shape[1]):
+        x = keys[:, i].astype(np.uint64)
+        x *= np.uint64(0xff51afd7ed558ccd)
+        x ^= x >> np.uint64(33)
+        h ^= x
+        h *= np.uint64(0x100000001b3)
+    order = np.argsort(h, kind="stable")
+    sk = keys[order]
+    sv = values[order]
+    boundary = np.empty(n, dtype=bool)
+    boundary[0] = True
+    # Full-row compare: equal keys are adjacent (equal hash); colliding
+    # distinct keys interleaved in a run just produce extra boundaries.
+    boundary[1:] = np.any(sk[1:] != sk[:-1], axis=1)
+    starts = np.flatnonzero(boundary)
+    return sk[starts], np.add.reduceat(sv, starts, axis=0)
+
+
+def materialize_view_batch(spec: "ViewSpec", keys: np.ndarray,
+                           values: np.ndarray,
+                           dicts: Dict[str, StringDictionary]
+                           ) -> ColumnarBatch:
+    """(keys [g,k], values [g,m]) → a ColumnarBatch in the view's row
+    shape. The single materialization point for view reads — ViewTable
+    (single node) and DistributedView (sharded) both go through it, so
+    the two read paths cannot drift."""
+    cols: Dict[str, np.ndarray] = {}
+    for i, name in enumerate(spec.key_columns):
+        cols[name] = keys[:, i].astype(
+            np.int32 if name in dicts else np.int64)
+    for i, name in enumerate(spec.sum_columns):
+        cols[name] = values[:, i]
+    return ColumnarBatch(
+        cols, {n: dicts[n] for n in spec.key_columns if n in dicts})
+
+
+@dataclasses.dataclass(frozen=True)
+class ViewSpec:
+    key_columns: Tuple[str, ...]
+    sum_columns: Tuple[str, ...]
+
+
+# Column lists transcribed from the reference MV definitions (see module
+# docstring for the create_table.sh line ranges).
+MATERIALIZED_VIEWS: Dict[str, ViewSpec] = {
+    "flows_pod_view": ViewSpec(
+        key_columns=(
+            "timeInserted", "flowEndSeconds", "flowEndSecondsFromSourceNode",
+            "flowEndSecondsFromDestinationNode", "sourcePodName",
+            "destinationPodName", "destinationIP", "destinationServicePort",
+            "destinationServicePortName", "flowType", "sourcePodNamespace",
+            "destinationPodNamespace", "sourceTransportPort",
+            "destinationTransportPort", "clusterUUID"),
+        sum_columns=(
+            "octetDeltaCount", "reverseOctetDeltaCount", "throughput",
+            "reverseThroughput", "throughputFromSourceNode",
+            "throughputFromDestinationNode")),
+    "flows_node_view": ViewSpec(
+        key_columns=(
+            "timeInserted", "flowEndSeconds", "flowEndSecondsFromSourceNode",
+            "flowEndSecondsFromDestinationNode", "sourceNodeName",
+            "destinationNodeName", "sourcePodNamespace",
+            "destinationPodNamespace", "clusterUUID"),
+        sum_columns=(
+            "octetDeltaCount", "reverseOctetDeltaCount", "throughput",
+            "reverseThroughput", "throughputFromSourceNode",
+            "reverseThroughputFromSourceNode",
+            "throughputFromDestinationNode",
+            "reverseThroughputFromDestinationNode")),
+    "flows_policy_view": ViewSpec(
+        key_columns=(
+            "timeInserted", "flowEndSeconds", "flowEndSecondsFromSourceNode",
+            "flowEndSecondsFromDestinationNode", "egressNetworkPolicyName",
+            "egressNetworkPolicyNamespace", "egressNetworkPolicyRuleAction",
+            "ingressNetworkPolicyName", "ingressNetworkPolicyNamespace",
+            "ingressNetworkPolicyRuleAction", "sourcePodName",
+            "sourceTransportPort", "sourcePodNamespace",
+            "destinationPodName", "destinationTransportPort",
+            "destinationPodNamespace", "destinationServicePort",
+            "destinationServicePortName", "destinationIP", "clusterUUID"),
+        sum_columns=(
+            "octetDeltaCount", "reverseOctetDeltaCount", "throughput",
+            "reverseThroughput", "throughputFromSourceNode",
+            "reverseThroughputFromSourceNode",
+            "throughputFromDestinationNode",
+            "reverseThroughputFromDestinationNode")),
+}
+
+
+class ViewTable:
+    """One materialized view: accumulated (keys, sums) parts + compaction."""
+
+    def __init__(self, name: str, spec: ViewSpec,
+                 dicts: Dict[str, StringDictionary]) -> None:
+        self.name = name
+        self.spec = spec
+        # Shared with the flows table, so view key codes decode with the
+        # same dictionaries.
+        self.dicts = dicts
+        # Parts are (keys, values, exact). `exact` records whether the
+        # part is known collision-free (native memcmp grouping, or a
+        # read-time lexsort compaction); group_sum_fast parts are not —
+        # a 64-bit row-hash collision can split one key across rows.
+        self._parts: List[Tuple[np.ndarray, np.ndarray, bool]] = []
+        self._lock = named_lock("store.view")
+
+    def __len__(self) -> int:
+        keys, _ = self._merged()
+        return keys.shape[0]
+
+    def apply_insert_block(self, block: ColumnarBatch) -> None:
+        """Aggregate one flows insert block into this view (the MV SELECT
+        ... GROUP BY per inserted block). Native single-pass hash
+        grouping when available (native/groupsum.cc); numpy hash-sort
+        otherwise — both emit unordered SummingMergeTree parts that
+        compact() re-groups exactly at read time."""
+        from ..ingest.native import native_group_sum
+        out = native_group_sum(
+            [block[c] for c in self.spec.key_columns],
+            [block[c] for c in self.spec.sum_columns])
+        exact = out is not None  # native grouping memcmps full keys
+        if out is None:
+            keys = np.stack([np.asarray(block[c], np.int64)
+                             for c in self.spec.key_columns], axis=1)
+            values = np.stack([np.asarray(block[c], np.int64)
+                               for c in self.spec.sum_columns], axis=1)
+            out = group_sum_fast(keys, values)
+        with self._lock:
+            self._parts.append((out[0], out[1], exact))
+
+    def _merged(self) -> Tuple[np.ndarray, np.ndarray]:
+        with self._lock:
+            parts = list(self._parts)
+        if not parts:
+            k = np.zeros((0, len(self.spec.key_columns)), np.int64)
+            v = np.zeros((0, len(self.spec.sum_columns)), np.int64)
+            return k, v
+        if len(parts) == 1 and parts[0][2]:
+            return parts[0][0], parts[0][1]
+        # Re-group even a lone inexact part: group_sum_fast may have
+        # split a hash-colliding key into two rows, and scan() promises
+        # exact re-grouping at read time.
+        keys = np.concatenate([p[0] for p in parts], axis=0)
+        values = np.concatenate([p[1] for p in parts], axis=0)
+        gk, gv = group_sum(keys, values)
+        with self._lock:
+            # Swap in the compacted part only if no insert raced us.
+            if len(self._parts) == len(parts) and \
+                    self._parts[-1] is parts[-1]:
+                self._parts = [(gk, gv, True)]
+        return gk, gv
+
+    def compact(self) -> None:
+        self._merged()
+
+    def scan(self) -> ColumnarBatch:
+        """The view as a ColumnarBatch (keys + summed metrics)."""
+        keys, values = self._merged()
+        return materialize_view_batch(self.spec, keys, values,
+                                      self.dicts)
+
+    def restore(self, keys: np.ndarray, values: np.ndarray) -> None:
+        """Install persisted (keys, values) aggregates wholesale — the
+        parts-aware snapshot saves views instead of rebuilding them
+        from rows at load (the flat-load discipline would force every
+        lazy part to decode). The arrays come from a `_merged()`
+        capture, so the single part is exact."""
+        with self._lock:
+            self._parts = [(np.asarray(keys, np.int64).reshape(
+                                -1, len(self.spec.key_columns)),
+                            np.asarray(values, np.int64).reshape(
+                                -1, len(self.spec.sum_columns)),
+                            True)]
+
+    def delete_older_than(self, boundary: int) -> int:
+        """Drop view rows with timeInserted < boundary (retention trim
+        deletes from MVs too, clickhouse-monitor/main.go:284-293).
+        Filters part-by-part under the lock — no insert can be lost."""
+        ti = self.spec.key_columns.index("timeInserted")
+        with self._lock:
+            dropped = 0
+            new_parts = []
+            for keys, values, exact in self._parts:
+                keep = keys[:, ti] >= boundary
+                dropped += int((~keep).sum())
+                if keep.all():
+                    new_parts.append((keys, values, exact))
+                elif keep.any():
+                    new_parts.append((keys[keep], values[keep], exact))
+            self._parts = new_parts
+        return dropped
+
+    def truncate(self) -> None:
+        with self._lock:
+            self._parts = []
