@@ -21,9 +21,12 @@ exits non-zero. The last line of standard output is
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Phases: device; build (both libraries in parallel); B1 against its
-plain version; the ingest path; ingest card vs CPU parity; B2 against
-its plain version; the TAD path; TAD card vs CPU parity; then the
-kernels line, the card's name and power limit, and the result line.
+plain version; the ingest path (one grouped B1 launch per fused step);
+ingest card vs CPU parity; B1's grouped launch against its plain
+version and against one-tile launches; B2 against its plain version,
+through the wrapper and each of its two routes; B2 on special values;
+the TAD path; TAD card vs CPU parity; then the kernels line, the
+card's name and power limit, and the result line.
 Imports nothing of JAX and nothing of the JAX package. Writes only
 under the package's _build/ directories.
 """
@@ -82,8 +85,6 @@ DBSCAN_KINDS = tuple(8.6e9 + DBSCAN_EPS * k
 #: B2 per pair test: subtract, absolute value, compare, two ands or an
 #: add — about five 32-bit operations
 B2_OPS_PER_PAIR = 5
-#: B2 per point: x (4 B) and mask (1 B) read, the flag (1 B) written
-B2_BYTES_PER_POINT = 6
 TAD_SERIES = 8192
 TAD_POINTS = 128
 TAD_ALGOS = ("EWMA", "DBSCAN", "ARIMA")
@@ -212,10 +213,10 @@ def compare_scan(rng, t: int, u: int, live: int, device) -> dict:
     before = StreamState(*(a.clone() for a in state))
     s_k = StreamState(*(a.clone() for a in state))
     s_p = StreamState(*(a.clone() for a in state))
-    launches = fd.launches
+    launches, tiles = fd.launches, fd.tiles
     anom_k = fd.stream_scan(s_k, slots, x, active)
     anom_p = fd._stream_half_plain(s_p, slots, x, active, 0.5)
-    fd.launches = launches   # comparison launches don't count
+    fd.launches, fd.tiles = launches, tiles   # comparison launches don't count
     if device.type == "cuda":
         torch.cuda.synchronize()
     max_err = 0.0
@@ -245,7 +246,7 @@ def compare_scan(rng, t: int, u: int, live: int, device) -> dict:
         # host, so it cannot be captured: per-call event time
         row["plain_ms"] = cuda_median_ms(
             lambda: fd._stream_half_plain(s_t, slots, x, active, 0.5))
-        fd.launches = launches
+        fd.launches, fd.tiles = launches, tiles
     row["bound_ms"], row["bound_by"] = bound_ms(t, u, live)
     return row
 
@@ -259,6 +260,84 @@ def phase_kernel_vs_plain(device) -> list:
             live = u - max(1, u // 16) if u < CAPACITY else u
             rows.append(compare_scan(rng, t, u, live, device))
     return rows
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time of one call of `fn` from Python (the scorer thread's
+    cost): perf_counter over n calls, the device left to catch up after
+    the window."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def phase_b1_grouped(modal: dict, device) -> dict:
+    """B1's grouped launch: eight tiles of the main path's modal shape
+    and the twelve kernel_vs_plain shapes as one group (two launches of
+    at most fd.MAX_TILES tiles), bit-exact against the plain version
+    tile by tile; then one grouped launch of the eight modal tiles
+    against eight one-tile launches, in turns (grouped, one-tile,
+    one-tile, grouped), device time from CUDA graphs and host time per
+    call from Python."""
+    import numpy as np
+    import torch
+    from theia_tpu_torch.analytics.streaming import StreamState
+    from theia_tpu_torch.ops import fused_detector as fd
+    rng = np.random.default_rng(31)
+    shapes = [(modal["T"], modal["U"], modal["live"])] * N_SHARDS + [
+        (t, u, u - max(1, u // 16) if u < CAPACITY else u)
+        for u in SHAPES_U for t in SHAPES_T]
+    group = [scan_inputs(rng, *shape, device) for shape in shapes]
+
+    def copies(g):
+        return [(StreamState(*(a.clone() for a in st)), *rest)
+                for st, *rest in g]
+
+    k_group, p_group = copies(group), copies(group)
+    launches, tiles = fd.launches, fd.tiles
+    anom_k = fd.stream_scan_grouped(k_group)
+    group_launches = fd.launches - launches
+    anom_p = [fd._stream_half_plain(*tile, 0.5) for tile in p_group]
+    torch.cuda.synchronize()
+    for n, (shape, kt, pt, ak, ap) in enumerate(
+            zip(shapes, k_group, p_group, anom_k, anom_p)):
+        if not torch.equal(ak, ap) or not all(
+                torch.equal(a, b) for a, b in zip(kt[0], pt[0])):
+            raise AssertionError(f"B1 grouped differs from plain at tile "
+                                 f"{n} (T, U, live) = {shape}")
+    want = -(-len(shapes) // fd.MAX_TILES)
+    if device.type == "cuda" and group_launches != want:
+        raise AssertionError(f"B1 grouped: {group_launches} launches for "
+                             f"{len(shapes)} tiles, expected {want}")
+
+    eight = copies(group[:N_SHARDS])
+    grouped = lambda: fd.stream_scan_grouped(eight)          # noqa: E731
+    singles = lambda: [fd.stream_scan(*tile) for tile in eight]  # noqa: E731
+    turns = {"grouped": [], "one_tile": []}
+    for name in ("grouped", "one_tile", "one_tile", "grouped"):
+        turns[name].append(graph_ms(grouped if name == "grouped"
+                                    else singles))
+    host = {"grouped": host_us(grouped), "one_tile": host_us(singles)}
+    plain_ms = cuda_median_ms(
+        lambda: [fd._stream_half_plain(*tile, 0.5) for tile in eight])
+    fd.launches, fd.tiles = launches, tiles
+    one_bound, by = bound_ms(*shapes[0])
+    return {"tiles": len(shapes), "launches": group_launches,
+            "bit_exact": True, "max_abs_err": 0.0,
+            "modal": {"T": modal["T"], "U": modal["U"],
+                      "live": modal["live"], "tiles": N_SHARDS},
+            "grouped_ms": turns["grouped"],
+            "one_tile_x8_ms": turns["one_tile"],
+            "ms": statistics.median(turns["grouped"]),
+            "one_tile_x8_median_ms": statistics.median(turns["one_tile"]),
+            "host_us": host, "plain_ms": plain_ms,
+            "bound_ms": N_SHARDS * one_bound, "bound_by": by}
 
 
 # -- traffic ------------------------------------------------------------
@@ -386,9 +465,9 @@ def phase_main_path(blocks, device) -> dict:
     im = IngestManager(None, n_shards=N_SHARDS, engine="fused",
                        device=device)
     try:
-        fd.launches = 0
+        fd.launches = fd.tiles = 0
         run = drive(im, blocks)
-        launches = fd.launches
+        launches, b1_tiles = fd.launches, fd.tiles
         eng = im._fused
         steps, coalesced = eng.steps, eng.coalesced_blocks
         device_ms = list(eng.device_ms)
@@ -399,11 +478,15 @@ def phase_main_path(blocks, device) -> dict:
     finally:
         im.close()
     n_tiles = sum(tiles_handed.values())
-    if device.type == "cuda" and (launches < steps or launches != n_tiles):
+    # one grouped launch per fused step scores every shard's tile
+    want_launches = (steps if N_SHARDS <= fd.MAX_TILES
+                     else -(-n_tiles // fd.MAX_TILES))
+    if device.type == "cuda" and (launches != want_launches
+                                  or b1_tiles != n_tiles):
         raise AssertionError(
-            f"B1 launched {launches} times over {steps} fused steps "
-            f"({n_tiles} shard tiles): the main path did not go "
-            "through the kernel")
+            f"B1 launched {launches} times for {b1_tiles} tiles over "
+            f"{steps} fused steps ({n_tiles} shard tiles): the main path "
+            "did not go through the grouped kernel once a step")
 
     # A second, profiled pass over the same blocks for the device's
     # idle share (the profiler slows the host, so rows/s come from the
@@ -438,7 +521,7 @@ def phase_main_path(blocks, device) -> dict:
         "rows": run["rows"], "seconds": run["seconds"],
         "rows_per_s": run["rows"] / run["seconds"],
         "fused_steps": steps, "coalesced_blocks": coalesced,
-        "b1_launches": launches,
+        "b1_launches": launches, "b1_tiles": b1_tiles,
         "step_device_ms_median": (statistics.median(device_ms)
                                   if device_ms else None),
         "step_device_ms_sum": sum(device_ms),
@@ -622,50 +705,170 @@ def dbscan_kinds(x, mask) -> dict:
                          + (non_core.long() * core.sum(-1).long()).sum())}
 
 
-def b2_bound_ms(s: int, t: int, pairs: int) -> tuple:
-    by_bytes = B2_BYTES_PER_POINT * s * t / HBM_BYTES_PER_S * 1e3
+def dbscan_pair_tests(x, mask, eps: float = DBSCAN_EPS,
+                      min_samples: int = DBSCAN_MIN_SAMPLES) -> dict:
+    """Pair tests of B2's two passes on these inputs, counted two ways.
+
+    `pairs_full`: every valid pair for the counts, then every (valid
+    non-core i, core j) pair for reach — what a kernel without an early
+    exit tests. `pairs_needed`: what the inputs need — per valid i, the
+    valid j's in j order up to its min_samples-th neighbour (all of
+    them when it has fewer); per valid non-core i, the core j's in j
+    order up to its first core neighbour (all of them when it has
+    none). Computed in chunks of series on x's device."""
+    import torch
+    s, t = x.shape
+    rows = max(1, 2 ** 24 // max(1, t * t))
+    full = needed = 0
+    for a in range(0, s, rows):
+        xs, ms = x[a:a + rows], mask[a:a + rows]
+        within = ((xs[:, :, None] - xs[:, None, :]).abs() <= eps) \
+            & ms[:, :, None] & ms[:, None, :]
+        n = ms.sum(-1)
+        core = (within.sum(-1) >= min_samples) & ms
+        open_ = ms & ~core
+        n_core = core.sum(-1)
+        full += int((n.long() ** 2).sum()
+                   + (open_.sum(-1).long() * n_core.long()).sum())
+        for hit, seen, total, who in (
+                (within.cumsum(-1, dtype=torch.int32) >= min_samples,
+                 ms.cumsum(-1, dtype=torch.int32), n, ms),
+                (within & core[:, None, :],
+                 core.cumsum(-1, dtype=torch.int32), n_core, open_)):
+            # tests of point i: the j's of the pass up to its first hit
+            first = hit.to(torch.uint8).argmax(-1)
+            tests = torch.where(hit.any(-1), seen.gather(-1, first),
+                                total[:, None].to(seen.dtype))
+            needed += int((tests.long() * who).sum())
+    return {"pairs_full": full, "pairs_needed": needed}
+
+
+def b2_bound_ms(s: int, t: int, pairs: int, x_bytes: int = 4) -> tuple:
+    """B2's bound: pair tests at B2_OPS_PER_PAIR operations against x
+    (x_bytes a point), the mask and the flag."""
+    by_bytes = (x_bytes + 2) * s * t / HBM_BYTES_PER_S * 1e3
     by_ops = B2_OPS_PER_PAIR * pairs / F32_OPS_PER_S * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
 
+def b2_routes(t: int) -> dict:
+    """B2's routes that take series of length t: route name → its
+    private entry in ops/dbscan.py."""
+    from theia_tpu_torch.ops import dbscan
+    routes = {"one_launch": dbscan._noise_one_launch,
+              "two_pass": dbscan._noise_two_pass}
+    if t > dbscan._ONE_MAX_T:
+        del routes["one_launch"]
+    return routes
+
+
 def compare_dbscan(s: int, t: int, device) -> dict:
-    """One shape: B2 and the plain version on the same card inputs,
-    bit-exact; the inputs must hold core, border and noise points
-    (S·T ≥ 6 and room for DBSCAN_KINDS). Times on the card."""
+    """One shape: B2 (the wrapper, then each route that applies) and the
+    plain version on the same card inputs, bit-exact, in float32 and
+    from float64 (B2 rounds it; the plain version gets x cast to
+    float32); the inputs must hold core, border and noise points
+    (S·T ≥ 6 and room for DBSCAN_KINDS). Times on the card; bounds by
+    the pair tests a kernel without an early exit makes and by those
+    the inputs need."""
     import torch
     from theia_tpu_torch.ops import dbscan
     x, m = dbscan_inputs(s * 7919 + t, s, t)
     xt = torch.tensor(x, device=device)
+    x64 = xt.double()
     mt = torch.tensor(m, device=device)
     launches = dbscan.launches
     got = dbscan.dbscan_noise_cuda(xt, mt)
+    got64 = dbscan.dbscan_noise_cuda(x64, mt)
     want = dbscan.dbscan_noise(xt, mt)
     dbscan.launches = launches      # comparison launches don't count
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(
-            f"B2 differs from plain at [{s}, {t}]: "
-            f"{int((got != want).sum())} flags")
+    for name, flags in (("float32", got), ("float64", got64)):
+        if not torch.equal(flags, want):
+            raise AssertionError(
+                f"B2 ({name} x) differs from plain at [{s}, {t}]: "
+                f"{int((flags != want).sum())} flags")
     kinds = dbscan_kinds(xt, mt)
     if t >= 6 and (s > 1 or t >= 10) and not (
             kinds["core"] and kinds["border"] and kinds["noise"]):
         raise AssertionError(f"B2 inputs at [{s}, {t}] lack a kind of "
                              f"point: {kinds}")
-    m8 = mt.to(torch.uint8)         # kernel-only timing: no mask cast
+    pairs = dbscan_pair_tests(xt, mt)
     row = {"S": s, "T": t, "bit_exact": True, "max_abs_err": 0.0,
-           "flags": int(got.sum()), **kinds,
-           "ms": graph_ms(lambda: dbscan.dbscan_noise_cuda(xt, m8)),
+           "route": dbscan._plan(s, t).route,
+           "flags": int(got.sum()), **kinds, **pairs,
+           "ms": graph_ms(lambda: dbscan.dbscan_noise_cuda(xt, mt)),
+           "ms_f64": graph_ms(lambda: dbscan.dbscan_noise_cuda(x64, mt)),
            "call_ms": cuda_median_ms(
                lambda: dbscan.dbscan_noise_cuda(xt, mt)),
-           "plain_ms": cuda_median_ms(lambda: dbscan.dbscan_noise(xt, mt))}
-    # launches the wrapper counted for this shape's check and timing
-    # (each is the two passes; graph replays re-run the captured ones
-    # uncounted). They are not the TAD path's and are taken back out.
+           "call_ms_f64": cuda_median_ms(
+               lambda: dbscan.dbscan_noise_cuda(x64, mt)),
+           "host_us_f64": host_us(
+               lambda: dbscan.dbscan_noise_cuda(x64, mt)),
+           "plain_ms": cuda_median_ms(lambda: dbscan.dbscan_noise(xt, mt)),
+           "routes": {}}
+    for route, fn in b2_routes(t).items():
+        for name, xin in (("float32", xt), ("float64", x64)):
+            flags = fn(xin, mt)
+            torch.cuda.synchronize()
+            if not torch.equal(flags, want):
+                raise AssertionError(
+                    f"B2 route {route} ({name} x) differs from plain at "
+                    f"[{s}, {t}]: {int((flags != want).sum())} flags")
+        row["routes"][route] = {"bit_exact": True,
+                                "ms": graph_ms(lambda: fn(xt, mt))}
+    # launches the wrapper counted for this shape's checks and timing
+    # (graph replays re-run the captured ones uncounted). They are not
+    # the TAD path's and are taken back out.
     row["counted_launches"] = dbscan.launches - launches
     dbscan.launches = launches
-    row["bound_ms"], row["bound_by"] = b2_bound_ms(s, t, kinds["pairs"])
+    row["bound_ms"], row["bound_by"] = b2_bound_ms(
+        s, t, pairs["pairs_needed"])
+    row["bound_full_ms"], row["bound_full_by"] = b2_bound_ms(
+        s, t, pairs["pairs_full"])
     return row
+
+
+def dbscan_special_inputs(seed: int, s: int, t: int):
+    """dbscan_inputs plus, in row 2, valid NaN and ±inf points, a chain
+    of points exactly eps apart and an invalid NaN: what folding the
+    mask into x as NaN on the j side must get right."""
+    import numpy as np
+    x, m = dbscan_inputs(seed, s, t)
+    special = np.array([np.nan, np.inf, -np.inf, 1e9, 1e9 + DBSCAN_EPS,
+                        1e9 + 2 * DBSCAN_EPS, 1e9 + 3 * DBSCAN_EPS,
+                        np.nan, 9e9], np.float32)
+    x[2, :len(special)] = special
+    m[2, :len(special)] = True
+    m[2, 7] = False
+    return x, m
+
+
+def phase_dbscan_special(device) -> dict:
+    """The wrapper and both routes against the plain version on
+    dbscan_special_inputs, float32 and float64 x."""
+    import torch
+    from theia_tpu_torch.ops import dbscan
+    out = {}
+    for s, t in ((4, 16), (64, 1440), (3, 4096)):
+        x, m = dbscan_special_inputs(s + t, s, t)
+        xt, mt = torch.tensor(x, device=device), torch.tensor(m, device=device)
+        want = dbscan.dbscan_noise(xt, mt)
+        launches = dbscan.launches
+        routes = {"wrapper": dbscan.dbscan_noise_cuda, **b2_routes(t)}
+        for route, fn in routes.items():
+            for xin in (xt, xt.double()):
+                got = fn(xin, mt)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"B2 {route} differs from plain on special values "
+                        f"at [{s}, {t}] ({xin.dtype}): "
+                        f"{int((got != want).sum())} flags")
+        dbscan.launches = launches
+        out[f"{s}x{t}"] = {"bit_exact": True, "flags": int(want.sum()),
+                           "row2_flags": want[2, :9].tolist()}
+    return out
 
 
 # -- phase: the TAD path ------------------------------------------------
@@ -925,31 +1128,37 @@ def main() -> int:
     emit("parity", **parity)
     check_parity(parity)
 
-    # B1's numbers at the main path's modal tile shape.
+    # B1's numbers at the main path's shape: one modal tile, and the
+    # grouped launch of eight, which is what a fused step makes.
     import numpy as np
     modal = main["modal_tile"]
     at_main = compare_scan(np.random.default_rng(99), modal["T"],
                            modal["U"], modal["live"], device)
+    grouped = phase_b1_grouped(modal, device)
+    emit("b1_grouped", kernel="B1 stream_scan", one_tile=at_main, **grouped)
     kernels = [{
         "name": "B1 stream_scan", "route": "cuda",
         "source": "theia_tpu_torch/csrc/stream_scan.cu",
         "replaces": "theia_tpu/ops/fused_detector.py:93",
         "tpu": "theia_tpu/ops/fused_detector.py::_scan_tile_pallas",
-        "launches": main["b1_launches"],
+        "launches": main["b1_launches"], "tiles": main["b1_tiles"],
         "matches_plain": all(r["bit_exact"] for r in scan_rows)
-        and at_main["bit_exact"],
+        and at_main["bit_exact"] and grouped["bit_exact"],
         "max_abs_err": max(r["max_abs_err"]
-                           for r in scan_rows + [at_main]),
-        "shape": {"T": modal["T"], "U": modal["U"],
+                           for r in scan_rows + [at_main, grouped]),
+        "shape": {"tiles": N_SHARDS, "T": modal["T"], "U": modal["U"],
                   "live": modal["live"], "capacity": CAPACITY},
-        "ms": at_main["ms"], "plain_ms": at_main["plain_ms"],
-        "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
+        "ms": grouped["ms"], "plain_ms": grouped["plain_ms"],
+        "bound_ms": grouped["bound_ms"], "bound_by": grouped["bound_by"],
         "library_ms": None,
+        "one_tile_x8_ms": grouped["one_tile_x8_median_ms"],
+        "one_tile_ms": at_main["ms"],
     }]
 
     b2_rows = [compare_dbscan(s, t, device) for s, t in B2_SHAPES]
     emit("kernel_vs_plain", kernel="B2 dbscan_noise", eps=DBSCAN_EPS,
          min_samples=DBSCAN_MIN_SAMPLES, shapes=b2_rows)
+    emit("b2_special_values", **phase_dbscan_special(device))
 
     t0 = time.perf_counter()
     flows = tad_flows(TAD_SERIES, TAD_POINTS, seed=17)
@@ -975,9 +1184,12 @@ def main() -> int:
         "matches_plain": all(r["bit_exact"] for r in b2_rows),
         "max_abs_err": max(r["max_abs_err"] for r in b2_rows),
         "shape": {"S": TAD_SERIES, "T": TAD_POINTS},
+        "b2_route": at_tad["route"],
         "ms": at_tad["ms"], "plain_ms": at_tad["plain_ms"],
         "bound_ms": at_tad["bound_ms"], "bound_by": at_tad["bound_by"],
         "library_ms": None,
+        "ms_f64": at_tad["ms_f64"],
+        "bound_full_ms": at_tad["bound_full_ms"],
     })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -240,3 +240,163 @@ def test_stream_scan_kernel_matches_plain_on_card(t, u):
     assert torch.equal(anom_k, anom_p)
     for a, b in zip(s_k, s_p):
         assert torch.equal(a, b)
+
+
+# -- B1 grouped: one launch over every shard's tile ---------------------
+
+#: (T, U, live) of mixed tiles; the last is all padding (no live slot)
+MIXED = [(1, 64, 40), (2, 256, 200), (3, 64, 64), (8, 128, 100),
+         (4, 256, 0)]
+
+
+def _scan_tiles(rng, spec, cap=CAP):
+    tiles = []
+    for t, u, live in spec:
+        stream, _, _ = _carried(rng)
+        slots, x, active = _inputs(rng, t, u, live)[:3]
+        tiles.append((StreamState(*(torch.from_numpy(a.copy())
+                                    for a in stream)),
+                      torch.from_numpy(slots), torch.from_numpy(x),
+                      torch.from_numpy(active)))
+    return tiles
+
+
+def _clone_tiles(tiles):
+    return [(StreamState(*(a.clone() for a in st)), *rest)
+            for st, *rest in tiles]
+
+
+@pytest.mark.parametrize("n_copies", [1, 4], ids=["5_tiles", "20_tiles"])
+def test_grouped_matches_plain_tile_by_tile(n_copies):
+    """On CPU tensors the grouped wrapper is `_stream_half_plain` per
+    tile, whatever the number of tiles (20 > MAX_TILES), and launches
+    nothing."""
+    rng = np.random.default_rng(41 + n_copies)
+    tiles = _scan_tiles(rng, MIXED * n_copies)
+    want_tiles = _clone_tiles(tiles)
+    launches, counted = fd.launches, fd.tiles
+    got = fd.stream_scan_grouped(tiles)
+    assert (fd.launches, fd.tiles) == (launches, counted)
+    want = [fd._stream_half_plain(*tile, 0.5) for tile in want_tiles]
+    assert len(got) == len(tiles)
+    for (st, _, x, _), (st_w, *_), g, w in zip(tiles, want_tiles, got,
+                                                 want):
+        assert g.shape == x.shape and g.dtype == torch.bool
+        assert torch.equal(g, w)
+        for a, b in zip(st, st_w):
+            assert torch.equal(a, b)
+    assert not got[4].any()            # the all-padding tile
+
+
+@pytest.mark.parametrize("use_pallas", [False, True],
+                         ids=["jnp_scan", "pallas_interpret"])
+def test_fused_step_mixed_tiles_matches_reference(use_pallas):
+    """One fused step over shards of mixed T and U (one of them all
+    padding) against the reference's fused_step, three steps in a
+    row."""
+    rng = np.random.default_rng(43)
+    carried = [_carried(rng) for _ in MIXED]
+    r_states = tuple(_ref_state(*c) for c in carried)
+    p_states = tuple(fd.shard_state_from_numpy(*c, "cpu")
+                     for c in carried)
+    for _ in range(3):
+        arrays = [_inputs(rng, t, u, live) for t, u, live in MIXED]
+        r_states, r_outs = ref_fd.fused_step(
+            r_states, tuple(_ref_inputs(a) for a in arrays), alpha=0.5,
+            use_pallas=use_pallas, interpret=use_pallas)
+        p_states, p_outs = fd.fused_step(
+            p_states, tuple(_port_inputs(a) for a in arrays), alpha=0.5)
+        for ps, rs, po, ro in zip(p_states, r_states, p_outs, r_outs):
+            _assert_state_matches(ps, rs)
+            np.testing.assert_array_equal(po.anomaly.numpy(),
+                                          np.asarray(ro.anomaly))
+            np.testing.assert_array_equal(po.est.numpy(),
+                                          np.asarray(ro.est))
+            np.testing.assert_allclose(po.dist.numpy(),
+                                       np.asarray(ro.dist),
+                                       rtol=1e-5, atol=1e-4)
+    assert any(o.anomaly.any() for o in p_outs)
+    assert not p_outs[-1].anomaly.any()
+
+
+def test_group_plan_block_offsets():
+    """A tile takes ceil(U / THREADS) blocks; its first block is the sum
+    over the tiles before it in its launch; the last entry is the
+    grid."""
+    shapes = [(1, 64), (2, 300), (1, 8192), (8, 65536)]
+    assert fd._group_plan(shapes) == [([0, 1, 2, 3], [0, 1, 3, 35, 291])]
+    assert fd.THREADS == 256
+
+
+def test_group_plan_chunks_past_max_tiles():
+    """More tiles than one launch takes go out in chunks of at most
+    MAX_TILES, in order; tiles without work (T or U zero) get no
+    blocks and no place in a launch."""
+    shapes = ([(1, 64)] * 3 + [(2, 300), (0, 64), (4, 0)]
+              + [(1, 8192)] * (2 * fd.MAX_TILES))
+    plan = fd._group_plan(shapes)
+    work = [k for k, (t, u) in enumerate(shapes) if t and u]
+    assert [k for idx, _ in plan for k in idx] == work
+    assert [len(idx) for idx, _ in plan] == [fd.MAX_TILES, fd.MAX_TILES, 4]
+    for idx, first in plan:
+        assert first[0] == 0 and len(first) == len(idx) + 1
+        for k, a, b in zip(idx, first, first[1:]):
+            assert b - a == -(-shapes[k][1] // fd.THREADS)
+        # the kernel's lookup: the last tile whose first block is <= the
+        # block's index owns the block
+        owner = [max(n for n in range(len(idx)) if first[n] <= blk)
+                 for blk in range(first[-1])]
+        assert owner == [n for n, (a, b) in enumerate(zip(first, first[1:]))
+                         for _ in range(a, b)]
+    assert fd._group_plan([]) == [] and fd._group_plan([(0, 64)]) == []
+
+
+def test_grouped_refuses_tiles_that_share_state():
+    """Two tiles of one launch writing one state array would race: the
+    wrapper refuses the same tensors and overlapping views, and takes
+    disjoint views of one buffer."""
+    rng = np.random.default_rng(47)
+    a, b = _scan_tiles(rng, [(1, 64, 40), (2, 64, 30)])
+    with pytest.raises(ValueError, match="shares state memory"):
+        fd.stream_scan_grouped([a, (a[0], *b[1:])])
+    buf = torch.zeros(4 * CAP)
+    counts = torch.zeros(2 * CAP, dtype=torch.int32)
+
+    def state(lo):
+        return StreamState(buf[lo:lo + CAP], counts[lo:lo + CAP],
+                           buf[2 * CAP + lo:2 * CAP + lo + CAP],
+                           torch.zeros(CAP))
+
+    with pytest.raises(ValueError, match="shares state memory"):
+        fd.stream_scan_grouped([(state(0), *a[1:]),
+                                (state(CAP // 2), *b[1:])])
+    flags = fd.stream_scan_grouped([(state(0), *a[1:]),
+                                    (state(CAP), *b[1:])])
+    assert [f.shape for f in flags] == [a[2].shape, b[2].shape]
+    with pytest.raises(ValueError):
+        fd.stream_scan_grouped([a, (b[0], b[1], b[2][:, :32], b[3])])
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_matches_plain_on_card():
+    """B1 grouped over mixed tiles (two launches of at most MAX_TILES)
+    on the card against the plain version tile by tile, bit-exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: B1 is a CUDA kernel")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(53)
+    spec = MIXED * 3 + [(1, 4096, 3000), (16, 512, 400)]
+    tiles = [(StreamState(*(a.to(dev) for a in st)), *(v.to(dev)
+                                                       for v in rest))
+             for st, *rest in _scan_tiles(rng, spec)]
+    plain = _clone_tiles(tiles)
+    launches, counted = fd.launches, fd.tiles
+    got = fd.stream_scan_grouped(tiles)
+    assert fd.launches == launches + 2
+    assert fd.tiles == counted + len(spec)
+    want = [fd._stream_half_plain(*tile, 0.5) for tile in plain]
+    torch.cuda.synchronize()
+    for (st, *_), (st_p, *_), g, w in zip(tiles, plain, got, want):
+        assert torch.equal(g, w)
+        for a, b in zip(st, st_p):
+            assert torch.equal(a, b)

@@ -14,16 +14,19 @@ Noise detection — all the job needs — is closed-form:
 `dbscan_noise` computes it as an [S, T, T] masked distance tensor in
 the dtype of x (the plain version). `dbscan_noise_cuda` is the wrapper
 of B2, the hand-written CUDA kernel csrc/dbscan_noise.cu, which never
-builds the cube. `dbscan_scores` sends a CUDA tensor to B2 (in
-float32, as the reference sends TPU work to its Pallas kernel) and a
-CPU tensor to `dbscan_noise` (in x's dtype, as the reference's XLA
-path on the CPU).
+builds the cube: one launch for short or many series, two passes for
+a few long ones (`_plan`). `dbscan_scores` sends a CUDA tensor to B2
+(in float32, as the reference sends TPU work to its Pallas kernel; B2
+rounds float64 x itself) and a CPU tensor to `dbscan_noise` (in x's
+dtype, as the reference's XLA path on the CPU).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -48,22 +51,134 @@ def dbscan_noise(x: torch.Tensor, mask: torch.Tensor,
 # -- B2: the kernel wrapper ---------------------------------------------
 
 _launch_lock = threading.Lock()
-#: B2 kernel launches since import (one per call that reached the
-#: card); a call on CPU tensors runs the plain version and does not
-#: count
+#: B2 kernel calls since import (one per call that reached the card,
+#: whichever route; the two-pass route is two kernel launches); a call
+#: on CPU tensors runs the plain version and does not count
 launches = 0
-_MAX_TILES = 65535      # the kernel's i-tiles ride gridDim.y
-_TILE = 128
+
+#: the kernel's constants (checked against the library when it loads):
+#: j's between two early-exit votes, to which a staged series is
+#: padded; the two-pass route's i-tile
+_CHECK = 16
+_PASS_I = 256
+#: one-launch blocks hold at least this many threads, at most 1,024
+_ONE_MIN_THREADS = 128
+_ONE_MAX_THREADS = 1024
+#: the longest series one block holds (1,024 threads of 4 points); up
+#: to half of it a thread holds 2
+_ONE_MAX_T = 4096
+#: series up to this long take one launch whatever the grid
+_SHORT_T = 512
+#: SMs of an H100 SXM
+_SMS = 132
+_MAX_GRID_Y = 65535
 
 
-def _kernel_fn():
+class _Plan(NamedTuple):
+    route: str                # "one_launch" or "two_pass"
+    padded_t: int             # T rounded up to _CHECK
+    points_per_thread: int    # R (one-launch route)
+    threads_per_series: int   # P (one-launch route)
+    series_per_block: int     # B (one-launch route)
+    blocks: int               # one-launch grid: ceil(S / B)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(s: int, t: int) -> _Plan:
+    """B2's launch plan for an [S, T] batch.
+
+    One-launch geometry: a series is P threads of R points, R = 2 (4
+    when the padded series is longer than 2,048), P the power of two
+    ≥ padded T / R up to a warp and a multiple of 32 above it;
+    B = max(1, 128 // P) series share a block.
+
+    Route rule: one launch when a block holds a whole series
+    (T ≤ 4,096) and either the series are short (T ≤ 512: a block's
+    work is small whatever the grid) or there are enough of them to
+    give each of the card's 132 SMs a block; otherwise two passes,
+    whose (series, 256-point i-tile) grid spreads a few long series
+    over the SMs."""
+    tp = -(-max(t, 1) // _CHECK) * _CHECK
+    r = 2 if tp <= 2 * _ONE_MAX_THREADS else 4
+    need = tp // r
+    p = 1 << (need - 1).bit_length() if need <= 32 else -(-need // 32) * 32
+    b = max(1, _ONE_MIN_THREADS // p)
+    blocks = -(-s // b)
+    one = t <= _ONE_MAX_T and (t <= _SHORT_T or blocks >= _SMS)
+    return _Plan("one_launch" if one else "two_pass", tp, r, p, b, blocks)
+
+
+def _library():
     from ._build import library
-    fn = library("dbscan_noise").dbscan_noise_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    lib = library("dbscan_noise")
+    one, two = lib.dbscan_noise_one_launch, lib.dbscan_noise_two_pass
+    if one.argtypes is None:
+        got = (lib.dbscan_check(), lib.dbscan_pass_i_tile())
+        if got != (_CHECK, _PASS_I):
+            raise RuntimeError(f"dbscan_noise: the library's constants "
+                               f"{got} differ from the wrapper's")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        one.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, i32,
+                        ctypes.c_float, i32, ptr]
+        two.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32,
+                        ctypes.c_float, i32, ptr]
+        one.restype = two.restype = ctypes.c_int
+    return one, two
+
+
+def _check(x: torch.Tensor, mask: torch.Tensor) -> None:
+    if x.dim() != 2 or mask.shape != x.shape:
+        raise ValueError(f"dbscan_noise_cuda: x {tuple(x.shape)} and mask "
+                         f"{tuple(mask.shape)}: expected two [S, T]")
+    if x.device != mask.device:
+        raise ValueError("dbscan_noise_cuda: x and mask must lie on one "
+                         f"device, got {x.device} and {mask.device}")
+
+
+def _launch(route: str, x: torch.Tensor, mask: torch.Tensor,
+            eps: float, min_samples: int) -> torch.Tensor:
+    """B2 on `route` for CUDA tensors, S, T > 0. x is read as float32
+    or float64 (other dtypes are cast to float32 first), the mask as
+    its bytes."""
+    if x.device.type != "cuda":
+        raise ValueError(f"dbscan_noise_cuda: no kernel for {x.device}")
+    s, t = x.shape
+    plan = _plan(s, t)
+    if s * t >= 2 ** 31 or -(-t // _PASS_I) > _MAX_GRID_Y:
+        raise ValueError(f"dbscan_noise_cuda: [{s}, {t}] is beyond the "
+                         "kernel's int32 indexing")
+    if route == "one_launch" and t > _ONE_MAX_T:
+        raise ValueError(f"dbscan_noise_cuda: T={t} is longer than one "
+                         f"block holds ({_ONE_MAX_T})")
+    if x.dtype not in (torch.float32, torch.float64):
+        x = x.to(torch.float32)
+    x = x.contiguous()
+    m8 = (mask if mask.dtype == torch.bool else mask != 0) \
+        .contiguous().view(torch.uint8)
+    noise = torch.empty((s, t), dtype=torch.bool, device=x.device)
+    one, two = _library()
+    is_double = int(x.dtype == torch.float64)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "one_launch":
+            err = one(x.data_ptr(), is_double, m8.data_ptr(),
+                      noise.data_ptr(), s, t, plan.threads_per_series,
+                      plan.series_per_block, plan.points_per_thread,
+                      float(eps), int(min_samples), stream)
+        elif route == "two_pass":
+            core = torch.empty((s, t), dtype=torch.uint8, device=x.device)
+            err = two(x.data_ptr(), is_double, m8.data_ptr(),
+                      core.data_ptr(), noise.data_ptr(), s, t, float(eps),
+                      int(min_samples), stream)
+        else:
+            raise ValueError(f"dbscan_noise_cuda: no route {route!r}")
+    if err != 0:
+        raise RuntimeError(f"dbscan_noise kernel launch failed: CUDA "
+                           f"error {err}")
+    global launches
+    with _launch_lock:
+        launches += 1
+    return noise
 
 
 def dbscan_noise_cuda(x: torch.Tensor, mask: torch.Tensor,
@@ -75,41 +190,38 @@ def dbscan_noise_cuda(x: torch.Tensor, mask: torch.Tensor,
 
     The counterpart of theia_tpu/ops/dbscan_pallas.py:57
     (`dbscan_noise_pallas`). CUDA tensors launch the kernel on the
-    current stream (or raise); CPU tensors run the plain version,
-    `dbscan_noise`, on x cast to float32. The module's `launches`
-    counts kernel launches."""
-    if x.dim() != 2 or mask.shape != x.shape:
-        raise ValueError(f"dbscan_noise_cuda: x {tuple(x.shape)} and mask "
-                         f"{tuple(mask.shape)}: expected two [S, T]")
-    if x.device != mask.device:
-        raise ValueError("dbscan_noise_cuda: x and mask must lie on one "
-                         f"device, got {x.device} and {mask.device}")
+    current stream, on the route `_plan` picks (or raise); float64 x is
+    rounded to float32 in the kernel. CPU tensors run the plain
+    version, `dbscan_noise`, on x cast to float32. The module's
+    `launches` counts kernel calls."""
+    _check(x, mask)
     if x.device.type == "cpu":
         return dbscan_noise(x.float(), mask.bool(), eps, min_samples)
-    if x.device.type != "cuda":
-        raise ValueError(f"dbscan_noise_cuda: no kernel for {x.device}")
     s, t = x.shape
     if s == 0 or t == 0:
         return torch.zeros((s, t), dtype=torch.bool, device=x.device)
-    if s * t >= 2 ** 31 or -(-t // _TILE) > _MAX_TILES:
-        raise ValueError(f"dbscan_noise_cuda: [{s}, {t}] is beyond the "
-                         "kernel's int32 indexing")
-    xf = x.to(torch.float32).contiguous()
-    m8 = mask.to(torch.uint8).contiguous()
-    core = torch.empty((s, t), dtype=torch.uint8, device=x.device)
-    noise = torch.empty((s, t), dtype=torch.bool, device=x.device)
-    fn = _kernel_fn()
-    with torch.cuda.device(x.device):
-        err = fn(xf.data_ptr(), m8.data_ptr(), core.data_ptr(),
-                 noise.data_ptr(), s, t, float(eps), int(min_samples),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dbscan_noise kernel launch failed: CUDA "
-                           f"error {err}")
-    global launches
-    with _launch_lock:
-        launches += 1
-    return noise
+    return _launch(_plan(s, t).route, x, mask, eps, min_samples)
+
+
+def _noise_one_launch(x: torch.Tensor, mask: torch.Tensor,
+                      eps: float = DEFAULT_EPS,
+                      min_samples: int = DEFAULT_MIN_SAMPLES
+                      ) -> torch.Tensor:
+    """B2's one-launch route whatever `_plan` picks (CUDA tensors, S,
+    T > 0, T ≤ 4,096): for holding each route against the plain
+    version."""
+    _check(x, mask)
+    return _launch("one_launch", x, mask, eps, min_samples)
+
+
+def _noise_two_pass(x: torch.Tensor, mask: torch.Tensor,
+                    eps: float = DEFAULT_EPS,
+                    min_samples: int = DEFAULT_MIN_SAMPLES
+                    ) -> torch.Tensor:
+    """B2's two-pass route whatever `_plan` picks (CUDA tensors, S,
+    T > 0)."""
+    _check(x, mask)
+    return _launch("two_pass", x, mask, eps, min_samples)
 
 
 def dbscan_scores(x: torch.Tensor, mask: torch.Tensor,
