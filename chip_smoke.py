@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and the CUDA toolkit (nvcc). Drives the port's two
+Needs one CUDA card and the CUDA toolkit (nvcc). Drives the port's
 paths and holds every kernel of them against its plain PyTorch version
 on the card:
 
@@ -13,7 +13,10 @@ on the card:
     (csrc/stream_scan.cu);
   * the TAD batch job — generate_flows → build_series →
     detect_anomalies for EWMA, DBSCAN and ARIMA at 8,192 series × 128
-    points; its kernel is B2 (csrc/dbscan_noise.cu, DBSCAN).
+    points; its kernel is B2 (csrc/dbscan_noise.cu, DBSCAN);
+  * the manager: both paths again as users reach them, POST /ingest
+    (B1) and TAD jobs through the intelligence API (B2), served by
+    `python -m theia_tpu_torch.manager`.
 
 Each phase prints one JSON line; any failure raises and the script
 exits non-zero. The last line of standard output is
@@ -25,16 +28,26 @@ plain version; the ingest path (one grouped B1 launch per fused step);
 ingest card vs CPU parity; B1's grouped launch against its plain
 version and against one-tile launches; B2 against its plain version,
 through the wrapper and each of its two routes; B2 on special values;
-the TAD path; TAD card vs CPU parity; then the kernels line, the
+the TAD path; TAD card vs CPU parity; then the manager slice: the
+port's manager started through its entry point's main() (POST /ingest
+from four producer streams through admission, dedup, the WAL, the
+parts store and the fused engine), its one-stream parity against the
+CPU, the TAD jobs through the intelligence API, a SIGKILL and restart
+of `python -m theia_tpu_torch.manager` on its WAL, and the working-set
+state tier against an unbounded run; then the kernels line, the
 card's name and power limit, and the result line.
-Imports nothing of JAX and nothing of the JAX package. Writes only
-under the package's _build/ directories.
+Imports nothing of JAX and nothing of the JAX package. Writes under
+the package's _build/ directories and, for the managers' WALs and
+parts, in temporary directories it removes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -350,12 +363,15 @@ def cluster_config(n_series: int, points: int, seed: int):
 
 
 def tblk_blocks(cfg, block_rows: int = BLOCK_ROWS) -> list:
+    from theia_tpu_torch.data.synth import generate_flows
+    return encode_blocks(generate_flows(cfg), block_rows)
+
+
+def encode_blocks(batch, block_rows: int = BLOCK_ROWS) -> list:
     """Flows ordered by flowEndSeconds, as an exporter sends them, cut
     into TBLK blocks."""
     import numpy as np
-    from theia_tpu_torch.data.synth import generate_flows
     from theia_tpu_torch.store import wire
-    batch = generate_flows(cfg)
     order = np.argsort(batch["flowEndSeconds"], kind="stable")
     batch = batch.take(order)
     return [wire.encode_block(batch.take(np.arange(
@@ -364,6 +380,14 @@ def tblk_blocks(cfg, block_rows: int = BLOCK_ROWS) -> list:
 
 
 # -- phase 4: the main path ---------------------------------------------
+
+def percentiles(values) -> dict:
+    values = sorted(values)
+    if not values:
+        return {"n": 0, "p50": None, "max": None}
+    return {"n": len(values), "p50": values[len(values) // 2],
+            "max": values[-1]}
+
 
 def drive(im, blocks, producers: int = PRODUCERS) -> dict:
     """Producers decode → score → publish every block; returns counts
@@ -411,13 +435,8 @@ def drive(im, blocks, producers: int = PRODUCERS) -> dict:
     wall = time.perf_counter() - t0
     if errors:
         raise errors[0]
-    latencies.sort()
     return {"rows": rows[0], "seconds": wall, "alerts": kinds,
-            "alert_latency_s": {
-                "n": len(latencies),
-                "p50": latencies[len(latencies) // 2] if latencies
-                else None,
-                "max": latencies[-1] if latencies else None}}
+            "alert_latency_s": percentiles(latencies)}
 
 
 def device_activity(prof, window_us: float):
@@ -608,6 +627,16 @@ def compare_streams(card, cpu) -> dict:
                               max_rel([a.estimate, a.share],
                                       [b.estimate, b.share]))
             got["hh_alerts"][a.kind] = got["hh_alerts"].get(a.kind, 0) + 1
+    compare_states(c_states, p_states, got)
+    return got
+
+
+def compare_states(c_states, p_states, got: dict) -> None:
+    """Every shard's final state, card against CPU, into `got`: the
+    stream state bit for bit, the largest relative differences of the
+    CMS counters, totals and centroids, and the k-means points moved."""
+    import numpy as np
+    rel = got["max_rel"]
     for (sc, cmc, kmc), (sp, cmp_, kmp) in zip(c_states, p_states):
         if not all(np.array_equal(a, b) for a, b in zip(sc, sp)):
             got["stream_state_bit_exact"] = False
@@ -621,16 +650,14 @@ def compare_streams(card, cpu) -> dict:
         got["kmeans_moved"].append(moved)
         got["kmeans_moved_share"] = max(got["kmeans_moved_share"],
                                         moved / max(n_points, 1.0))
-    return got
 
 
-def phase_parity(blocks, device) -> dict:
-    """The parity stream on the card and on the CPU, one block per
-    step; then once more on the card with TF32 matmuls allowed, as a
-    control that the tolerance sees the precision it guards against
-    (reported, not asserted)."""
+def phase_parity(blocks, cpu, device) -> dict:
+    """The parity stream on the card against `cpu` (the same blocks
+    scored on the CPU), one block per step; then once more on the card
+    with TF32 matmuls allowed, as a control that the tolerance sees
+    the precision it guards against (reported, not asserted)."""
     import torch
-    cpu = score_stream(blocks, "cpu")
     got = compare_streams(score_stream(blocks, device), cpu)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -650,6 +677,11 @@ def check_parity(got: dict) -> None:
                              "stream proves nothing")
     if got["conn_blocks_differ"] or got["hh_blocks_differ"]:
         raise AssertionError("alerts differ card vs CPU")
+    check_states(got)
+
+
+def check_states(got: dict) -> None:
+    """The final-state and float limits of a card-vs-CPU comparison."""
     if not got["stream_state_bit_exact"]:
         raise AssertionError("final StreamState differs card vs CPU")
     if not got["kmeans_points_equal"]:
@@ -1091,6 +1123,628 @@ def build_kernels() -> dict:
     return seconds
 
 
+# -- the manager slice --------------------------------------------------
+
+INTELLIGENCE = ("/apis/intelligence.theia.antrea.io/v1alpha1/"
+                "throughputanomalydetectors")
+TABLE_INFO = "/apis/stats.theia.antrea.io/v1alpha1/clickhouse/tableInfo"
+#: connection alerts the manager's ring keeps (manager/ingest.py)
+RING = 1000
+#: blocks of the profiled /ingest pass (the device's idle share)
+PROFILED_BLOCKS = 16
+#: the restart drill's blocks, and its child's time to serve
+RESTART_BLOCKS = 8
+CHILD_READY_S = 300.0
+TAD_JOB_TIMEOUT_S = 600.0
+#: the working-set drill: bench.py's working-set mix (every key once
+#: in random order, then half as many Zipf(1.3) re-arrivals, values
+#: uniform in [0, 1e3)) at four times the hot slots of every shard
+TIER_KEYS = 4 * N_SHARDS * CAPACITY
+TIER_ZIPF = 1.3
+#: the mix's one addition: this share of points 50x, so that the
+#: alert multisets compared are not empty
+TIER_SPIKES = 0.02
+#: rows a step: small enough that a step's connection alerts stay
+#: under the per-step decode cap (MAX_ALERTS), so every alert is
+#: described and the multisets are whole
+TIER_BATCH = 4096
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_json(port: int, path: str, method: str = "GET", body=None,
+              timeout: float = 120.0):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def wait_ready(port: int, gave_up, timeout: float) -> dict:
+    """Poll /healthz until the manager on `port` answers; fails once
+    `gave_up()` says the manager stopped, or after `timeout` s."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if gave_up():
+            raise RuntimeError(f"the manager on port {port} stopped "
+                               "before it served")
+        try:
+            return http_json(port, "/healthz", timeout=5)
+        except OSError:
+            time.sleep(0.2)
+    raise TimeoutError(f"the manager on port {port} did not serve "
+                       f"within {timeout:.0f}s")
+
+
+@contextlib.contextmanager
+def environ(**env):
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_manager(args: list, env: dict, drive):
+    """`python -m theia_tpu_torch.manager` in this process: its main()
+    runs in this (the main) thread, which its signal handlers need,
+    and `drive(port)` on another thread; once the driver is done it
+    ends the manager as an operator does, with SIGTERM (main() drains
+    and returns). Returns what `drive` returned."""
+    from theia_tpu_torch.manager.__main__ import main as manager_main
+    port = free_port()
+    stopped = threading.Event()
+    result: dict = {}
+
+    def driver():
+        try:
+            wait_ready(port, stopped.is_set, CHILD_READY_S)
+            result["out"] = drive(port)
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            result["error"] = e
+        finally:
+            if not stopped.is_set():
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    saved = {sig: signal.getsignal(sig)
+             for sig in (signal.SIGINT, signal.SIGTERM)}
+    th = threading.Thread(target=driver, name="manager-driver")
+    th.start()
+    try:
+        with environ(**env):
+            manager_main([*args, "--port", str(port)])
+    finally:
+        stopped.set()
+        th.join()
+        for sig, handler in saved.items():
+            signal.signal(sig, handler)
+    if "error" in result:
+        raise result["error"]
+    return result["out"]
+
+
+def send_blocks(port: int, blocks, producers: int, prefix: str) -> dict:
+    """`producers` threads, each an IngestClient on its own stream
+    with seq stamps, producer i sending blocks i, i + producers, ...;
+    returns the acked rows and alerts, the window and every ack's
+    latency."""
+    from theia_tpu_torch.ingest.client import IngestClient
+    lock = threading.Lock()
+    acks: list = []
+    errors: list = []
+
+    def producer(i):
+        try:
+            client = IngestClient(f"http://127.0.0.1:{port}",
+                                  stream=f"{prefix}-{i}", timeout=120.0)
+            for seq, blk in enumerate(blocks[i::producers]):
+                t0 = time.perf_counter()
+                ack = client.send(blk, seq=seq)
+                dt = time.perf_counter() - t0
+                with lock:
+                    acks.append((ack, dt))
+        except BaseException as e:   # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=producer, args=(i,),
+                                name=f"producer-{prefix}-{i}")
+               for i in range(producers)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(a.get("duplicate") or a.get("degraded") for a, _ in acks):
+        raise AssertionError("a fresh block was acked as a duplicate or "
+                             "degraded")
+    return {"rows": sum(a["rows"] for a, _ in acks), "seconds": wall,
+            "alerts": sum(a["alerts"] for a, _ in acks),
+            "ack_latency_s": percentiles([dt for _, dt in acks])}
+
+
+def total_rows(port: int) -> int:
+    doc = http_json(port, TABLE_INFO)
+    return next(int(t["totalRows"]) for t in doc["tableInfos"]
+                if t["tableName"] == "flows")
+
+
+def manager_env(tmp: str) -> dict:
+    """The manager's store and engine: the parts engine with its part
+    directory in `tmp`, and `auto`, which picks the fused engine on a
+    card."""
+    return {"THEIA_STORE_ENGINE": "parts",
+            "THEIA_STORE_COLD_DIR": os.path.join(tmp, "parts"),
+            "THEIA_DETECTOR_ENGINE": "auto"}
+
+
+def manager_args(tmp: str, device) -> list:
+    return ["--device", str(device), "--wal-dir", os.path.join(tmp, "wal"),
+            "--ingest-shards", str(N_SHARDS)]
+
+
+def phase_manager_path(blocks, device) -> dict:
+    """The main path of the manager slice: the port's manager, started
+    through its entry point, answers POST /ingest from four producer
+    streams at full width; B1's counts are set to 0 just before the
+    timed window and read just after. Then a profiled pass over a few
+    blocks on new streams gives the device's idle share."""
+    import tempfile
+    import torch
+    from theia_tpu_torch.ops import fused_detector as fd
+    from theia_tpu_torch.store.wal import default_sync_policy
+
+    def drive(port):
+        health = http_json(port, "/healthz")
+        engine = health["ingest"]["engine"]
+        if engine["name"] != "fused":
+            raise AssertionError(f"auto picked {engine} on {device}")
+        # one block per shard on a stream of its own: the kernels'
+        # first use, the store's native build and pinned staging
+        warm = send_blocks(port, blocks[:N_SHARDS], 1, "warm")
+        eng = live_fused_engine()
+        before = http_json(port, "/healthz")
+        tiles0 = sum(eng.tiles.values())
+        eng.alert_latency_s.clear()
+        fd.launches = fd.tiles = 0
+        run = send_blocks(port, blocks, PRODUCERS, "p")
+        launches, b1_tiles = fd.launches, fd.tiles
+        after = http_json(port, "/healthz")
+        n_tiles = sum(eng.tiles.values()) - tiles0
+        # every block of the window that raised connection alerts (the
+        # /alerts ring keeps only the newest RING alerts, one block's)
+        latency = percentiles(list(eng.alert_latency_s))
+        idle, profiled = None, None
+        if device.type == "cuda":
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                profiled = send_blocks(port, blocks[:PROFILED_BLOCKS],
+                                       PRODUCERS, "profiled")
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+            busy, by_kernel = device_activity(prof, window_us)
+            idle = None if busy is None else 1.0 - busy
+            profiled.update(device_ms_total=sum(
+                v["ms"] for v in by_kernel.values()),
+                top_kernels=dict(list(by_kernel.items())[:8]))
+        stored = total_rows(port)
+        eng0, eng1 = before["ingest"]["engine"], after["ingest"]["engine"]
+        return {
+            "rows": run["rows"], "seconds": run["seconds"],
+            "rows_per_s": run["rows"] / run["seconds"],
+            "producers": PRODUCERS, "blocks": len(blocks),
+            "ack_latency_s": run["ack_latency_s"],
+            "alerts_acked": run["alerts"],
+            "alert_latency_s": latency,
+            "fused_steps": eng1["steps"] - eng0["steps"],
+            "coalesced_blocks": (eng1["coalescedBlocks"]
+                                 - eng0["coalescedBlocks"]),
+            "engine": {k: eng1.get(k) for k in ("name", "requested",
+                                                "device")},
+            "b1_launches": launches, "b1_tiles": b1_tiles,
+            "shard_tiles": n_tiles,
+            "b1_launches_per_s": launches / run["seconds"],
+            "device_idle_share": idle, "profiled": profiled,
+            "wal_policy": after["wal"]["policy"],
+            "wal_bytes_written": (after["wal"]["bytes"]
+                                  - before["wal"]["bytes"]),
+            "store_total_rows": stored,
+            "rows_acked": (warm["rows"] + run["rows"]
+                           + (profiled["rows"] if profiled else 0)),
+            "admission": after["admission"]["levelName"],
+        }
+
+    with tempfile.TemporaryDirectory(prefix="theia-manager-") as tmp:
+        out = run_manager(manager_args(tmp, device), manager_env(tmp),
+                          drive)
+    out["wal_sync_env"] = str(default_sync_policy())
+    if out["store_total_rows"] != out["rows_acked"]:
+        raise AssertionError(
+            f"the store holds {out['store_total_rows']} rows, "
+            f"{out['rows_acked']} were acked")
+    # held as the library path is: one grouped launch per fused step,
+    # over every shard tile the steps handed to B1
+    want = (out["fused_steps"] if N_SHARDS <= fd.MAX_TILES
+            else -(-out["shard_tiles"] // fd.MAX_TILES))
+    if device.type == "cuda" and (out["b1_launches"] != want
+                                  or out["b1_tiles"]
+                                  != out["shard_tiles"]):
+        raise AssertionError(
+            f"B1 launched {out['b1_launches']} times for "
+            f"{out['b1_tiles']} tiles over {out['fused_steps']} fused "
+            f"steps ({out['shard_tiles']} shard tiles) of /ingest "
+            "traffic")
+    return out
+
+
+def live_fused_engine():
+    """The fused engine of the manager that run_manager serves in this
+    process: the one FusedDetectorEngine still open."""
+    import gc
+    from theia_tpu_torch.ingest.device_path import FusedDetectorEngine
+    engines = [o for o in gc.get_objects()
+               if type(o) is FusedDetectorEngine
+               and not o._closed.is_set()]
+    if len(engines) != 1:
+        raise AssertionError(f"{len(engines)} open fused engines, "
+                             "want the manager's one")
+    return engines[0]
+
+
+def ring_of(outs, limit: int = RING) -> list:
+    """The alert ring a manager publishes for these per-block
+    (hh, conn, n_conn) results: each block's heavy-hitter alerts, then
+    its connection alerts, newest first (manager/ingest.py)."""
+    import collections
+    ring = collections.deque(maxlen=limit)
+    for hh, conn, _ in outs:
+        for a in hh:
+            ring.appendleft(dataclasses.asdict(a))
+        for d in conn:
+            ring.appendleft(d)
+    return list(ring)
+
+
+def phase_manager_parity(blocks, cpu, device) -> dict:
+    """One producer stream, in order, through /ingest of a port
+    manager on the card, against the same blocks through the port's
+    score_batch on the CPU (`cpu`, one block per step as here): the
+    acks' alert counts per block, the alert ring (connection alerts
+    identical apart from the clock stamps, heavy-hitter floats within
+    RTOL) and every shard's final state, held as the parity phase
+    holds them."""
+    import numpy as np
+    from theia_tpu_torch.ingest.client import IngestClient
+    from theia_tpu_torch.manager import TheiaManagerServer
+    from theia_tpu_torch.ops import fused_detector as fd
+    from theia_tpu_torch.store import FlowDatabase
+
+    with environ(THEIA_STORE_ENGINE="parts",
+                 THEIA_DETECTOR_ENGINE="auto"):
+        srv = TheiaManagerServer(FlowDatabase(), port=0,
+                                 ingest_shards=N_SHARDS, device=device)
+    srv.start_background()
+    try:
+        client = IngestClient(f"http://127.0.0.1:{srv.port}",
+                              stream="parity", timeout=120.0)
+        acks = [client.send(b, seq=i) for i, b in enumerate(blocks)]
+        ring = srv.ingest.recent_alerts(RING)
+        states = [fd.shard_state_to_numpy(fd.ShardStepState(
+            s.streaming.state, s.heavy.cms, s.heavy.kmeans))
+            for s in srv.ingest.shards]
+        engine = srv.ingest.engine_name
+    finally:
+        srv.shutdown()
+    outs, cpu_states = cpu
+    want = ring_of(outs)
+    got = {"engine": engine, "blocks": len(blocks),
+           "ack_alerts_differ": sum(
+               a["alerts"] != len(hh) + n
+               for a, (hh, _, n) in zip(acks, outs)),
+           "ring": len(ring), "ring_differ": 0,
+           "connection_alerts_on_ring": 0,
+           "max_rel": {"heavy_hitter": 0.0, "ddos_shape": 0.0,
+                       "cms_counts": 0.0, "cms_total": 0.0,
+                       "centroids": 0.0},
+           "kmeans_points_equal": True, "kmeans_moved": [],
+           "kmeans_moved_share": 0.0, "stream_state_bit_exact": True}
+    floats = ("estimate", "share")
+    for a, b in zip(ring, want):
+        hh = a.get("kind") != "connection_anomaly"
+        drop = ("time", "latency_s") + (floats if hh else ())
+        if {k: v for k, v in a.items() if k not in drop} != \
+                {k: v for k, v in b.items() if k not in drop}:
+            got["ring_differ"] += 1
+        elif hh:
+            kind = a["kind"]
+            got["max_rel"][kind] = max(got["max_rel"][kind], max_rel(
+                [a[k] for k in floats], [b[k] for k in floats]))
+        else:
+            got["connection_alerts_on_ring"] += 1
+    got["ring_differ"] += abs(len(ring) - len(want))
+    compare_states(states, cpu_states, got)
+    got["acked_alerts"] = int(np.sum([a["alerts"] for a in acks]))
+    return got
+
+
+def check_manager_parity(got: dict) -> None:
+    if got["connection_alerts_on_ring"] == 0:
+        raise AssertionError("no connection alert on the ring: the "
+                             "manager parity pass proves nothing")
+    if got["ack_alerts_differ"] or got["ring_differ"]:
+        raise AssertionError("alerts through /ingest differ card vs CPU")
+    check_states(got)
+
+
+def api_rows(rows) -> list:
+    """The intelligence API's string-typed TAD rows in the types
+    missed_spikes reads."""
+    return [{"sourceIP": r["sourceIP"],
+             "sourceTransportPort": int(r["sourceTransportPort"]),
+             "throughput": float(r["throughput"])} for r in rows]
+
+
+def run_job(port: int, algo: str) -> dict:
+    """Create one TAD job through the intelligence API, poll it, and
+    retrieve it with its rows."""
+    import uuid
+    name = f"tad-{uuid.uuid4()}"
+    http_json(port, INTELLIGENCE, "POST",
+              {"metadata": {"name": name}, "jobType": algo})
+    deadline = time.monotonic() + TAD_JOB_TIMEOUT_S
+    while time.monotonic() < deadline:
+        doc = http_json(port, f"{INTELLIGENCE}/{name}")
+        state = doc["status"]["state"]
+        if state == "FAILED":
+            raise AssertionError(f"TAD {algo} job failed: "
+                                 f"{doc['status']['errorMsg']}")
+        if state == "COMPLETED":
+            return doc
+        time.sleep(0.2)
+    raise TimeoutError(f"TAD {algo} job did not finish in "
+                       f"{TAD_JOB_TIMEOUT_S:.0f}s")
+
+
+def phase_manager_tad(blocks, flows, device) -> dict:
+    """The TAD configuration's flows through /ingest of the port's
+    manager, then one EWMA and one DBSCAN job created, polled and
+    retrieved through the intelligence API; B2's count set to 0 just
+    before the DBSCAN job and read just after."""
+    import tempfile
+    from theia_tpu_torch.ops import dbscan
+
+    def drive(port):
+        ingest = send_blocks(port, blocks, PRODUCERS, "tad")
+        out = {"rows": ingest["rows"], "ingest_s": ingest["seconds"],
+               "store_total_rows": total_rows(port), "jobs": {}}
+        for algo in ("EWMA", "DBSCAN"):
+            dbscan.launches = 0
+            t0 = time.perf_counter()
+            doc = run_job(port, algo)
+            polled_s = time.perf_counter() - t0
+            launches = dbscan.launches
+            st = doc["status"]
+            rows = doc.get("stats", [])
+            out["jobs"][algo] = {
+                "job_s": st["endTime"] - st["startTime"],
+                "create_to_rows_s": polled_s,
+                "result_rows": len(rows), "b2_launches": launches,
+                "missed_spikes": missed_spikes(flows, TAD_SERIES,
+                                               api_rows(rows))}
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="theia-manager-tad-") as tmp:
+        out = run_manager(manager_args(tmp, device), manager_env(tmp),
+                          drive)
+    out["spikes"] = int(flows.ground_truth_anomalous.sum())
+    if out["store_total_rows"] != out["rows"] or out["rows"] != len(flows):
+        raise AssertionError(f"{len(flows)} TAD flows sent, {out['rows']} "
+                             f"acked, {out['store_total_rows']} stored")
+    for algo, job in out["jobs"].items():
+        if job["missed_spikes"]:
+            raise AssertionError(f"TAD {algo} through the API missed "
+                                 f"{job['missed_spikes']} spikes")
+    if device.type == "cuda" and out["jobs"]["DBSCAN"]["b2_launches"] < 1:
+        raise AssertionError("the API's DBSCAN job did not go through B2")
+    return out
+
+
+def start_child(tmp: str, device, log) -> subprocess.Popen:
+    port = free_port()
+    env = {**os.environ, **manager_env(tmp), "THEIA_WAL_SYNC": "always"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "theia_tpu_torch.manager",
+         *manager_args(tmp, device), "--port", str(port)],
+        env=env, stdout=log, stderr=subprocess.STDOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    proc.port = port
+    return proc
+
+
+def phase_manager_restart(blocks, device) -> dict:
+    """`python -m theia_tpu_torch.manager` as a child process (WAL sync
+    `always`, no snapshot): seq-stamped blocks, SIGKILL, a restart on
+    the same WAL directory; every acked row comes back, and a re-sent
+    seq answers duplicate."""
+    import tempfile
+    from theia_tpu_torch.ingest.client import IngestClient
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="theia-restart-") as tmp:
+        log_path = os.path.join(tmp, "manager.log")
+        with open(log_path, "wb") as log:
+            procs = []
+            try:
+                child = start_child(tmp, device, log)
+                procs.append(child)
+                t0 = time.perf_counter()
+                wait_ready(child.port, lambda: child.poll() is not None,
+                           CHILD_READY_S)
+                out["first_ready_s"] = time.perf_counter() - t0
+                client = IngestClient(f"http://127.0.0.1:{child.port}",
+                                      stream="restart", timeout=120.0)
+                acks = [client.send(b, seq=i) for i, b in enumerate(blocks)]
+                out["rows_acked"] = sum(a["rows"] for a in acks)
+                child.send_signal(signal.SIGKILL)
+                out["killed_rc"] = child.wait(timeout=60)
+                child = start_child(tmp, device, log)
+                procs.append(child)
+                t0 = time.perf_counter()
+                wait_ready(child.port, lambda: child.poll() is not None,
+                           CHILD_READY_S)
+                out["restart_ready_s"] = time.perf_counter() - t0
+                out["rows_recovered"] = total_rows(child.port)
+                client = IngestClient(f"http://127.0.0.1:{child.port}",
+                                      stream="restart", timeout=120.0)
+                again = client.send(blocks[-1], seq=len(blocks) - 1)
+                out["resent"] = {k: again.get(k)
+                                 for k in ("rows", "duplicate")}
+                child.send_signal(signal.SIGTERM)
+                out["stopped_rc"] = child.wait(timeout=120)
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait(timeout=60)
+        with open(log_path, "rb") as log:
+            tail = log.read()[-3000:].decode(errors="replace")
+    if out.get("stopped_rc") != 0 \
+            or out["rows_recovered"] != out["rows_acked"] \
+            or out["resent"] != {"rows": acks[-1]["rows"],
+                                 "duplicate": True}:
+        raise AssertionError(f"restart drill failed: {out}\n{tail}")
+    return out
+
+
+def tier_stream(seed: int):
+    """The working-set drill's traffic, as (key index, throughput)
+    arrays: bench.py's working-set mix at TIER_KEYS keys, drawn in
+    bench.py's order from `seed`, with TIER_SPIKES of the points
+    spiked 50x by a generator of their own."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    keys = np.concatenate([
+        rng.permutation(TIER_KEYS),
+        rng.zipf(TIER_ZIPF, size=TIER_KEYS // 2).astype(np.int64)
+        % TIER_KEYS])
+    vals = rng.random(len(keys)) * 1e3
+    spikes = np.random.default_rng(seed + 1).random(len(keys))
+    vals[spikes < TIER_SPIKES] *= 50.0
+    return keys, vals
+
+
+def tier_batches(keys, vals):
+    """Connection k = (10.0.(k mod 256).1, port 1024 + k div 65,536,
+    10.1.((k div 256) mod 256).1, 80, TCP): TIER_BATCH rows a batch,
+    one pair of dictionaries for the whole stream."""
+    import numpy as np
+    from theia_tpu_torch.schema import ColumnarBatch, StringDictionary
+    src_d, dst_d = StringDictionary(), StringDictionary()
+    src_c = np.array([src_d.encode_one(f"10.0.{i}.1") for i in range(256)],
+                     np.int32)
+    dst_c = np.array([dst_d.encode_one(f"10.1.{i}.1") for i in range(256)],
+                     np.int32)
+    dicts = {"sourceIP": src_d, "destinationIP": dst_d}
+    for i in range(0, len(keys), TIER_BATCH):
+        k = keys[i:i + TIER_BATCH]
+        n = len(k)
+        yield ColumnarBatch({
+            "sourceIP": src_c[k % 256],
+            "destinationIP": dst_c[(k >> 8) % 256],
+            "sourceTransportPort": (1024 + (k >> 16)).astype(np.int32),
+            "destinationTransportPort": np.full(n, 80, np.int32),
+            "protocolIdentifier": np.full(n, 6, np.int32),
+            "flowStartSeconds": np.full(n, 1, np.int64),
+            "flowEndSeconds": np.full(n, 100, np.int64),
+            "throughput": vals[i:i + n],
+            "octetDeltaCount": np.full(n, 1000, np.int64),
+            "packetDeltaCount": np.full(n, 10, np.int64),
+            "reverseOctetDeltaCount": np.zeros(n, np.int64),
+        }, dicts)
+
+
+def tier_run(keys, vals, device, capacity=None) -> dict:
+    """The drill through IngestManager.score_batch, in order, on the
+    fused engine (`auto` on a card); with THEIA_STATE_TIER set by the
+    caller, the tiers' stats come back too."""
+    from theia_tpu_torch.manager.ingest import IngestManager
+    from theia_tpu_torch.ops import fused_detector as fd
+    from theia_tpu_torch.store import FlowDatabase
+    with environ(THEIA_DETECTOR_ENGINE="auto"):
+        im = IngestManager(FlowDatabase(), n_shards=N_SHARDS,
+                           streaming_capacity=capacity, device=device)
+    alerts: list = []
+    n_conn = truncated = 0
+    try:
+        fd.launches = 0
+        t0 = time.perf_counter()
+        for batch in tier_batches(keys, vals):
+            _, conn, n = im.score_batch(batch)
+            n_conn += n
+            truncated += n - len(conn)
+            alerts.extend(tuple(sorted(
+                (k, v) for k, v in d.items()
+                if k not in ("latency_s", "slot"))) for d in conn)
+        seconds = time.perf_counter() - t0
+        out = {"engine": im.engine_name, "rows": len(keys),
+               "seconds": seconds, "rows_per_s": len(keys) / seconds,
+               "connection_alerts": n_conn, "undescribed": truncated,
+               "b1_launches": fd.launches,
+               "capacity": im.shards[0].streaming.capacity,
+               "dropped_series": sum(s.streaming.dropped_series
+                                     for s in im.shards),
+               "tiers": [t.stats() for t in im._tiers]}
+    finally:
+        im.close()
+    alerts.sort()
+    return out, alerts
+
+
+def phase_state_tier(device) -> dict:
+    """THEIA_STATE_TIER on, at full width (8 shards of 65,536 slots)
+    with four times as many connections as slots; against an unbounded
+    run (every connection its own slot) on the same card."""
+    keys, vals = tier_stream(seed=7)
+    with environ(THEIA_STATE_TIER="1"):
+        tiered, got = tier_run(keys, vals, device, capacity=CAPACITY)
+    unbounded, want = tier_run(keys, vals, device, capacity=TIER_KEYS)
+    tiers = tiered.pop("tiers")
+    totals = {k: sum(t[k] for t in tiers)
+              for k in ("evictions", "promotions", "overflow")}
+    out = {"keys": TIER_KEYS, "slots": N_SHARDS * CAPACITY,
+           "keys_per_slot": TIER_KEYS / (N_SHARDS * CAPACITY),
+           "tiered": {**tiered, **totals},
+           "unbounded": {k: v for k, v in unbounded.items()
+                         if k != "tiers"},
+           "alert_multisets_equal": got == want}
+    if not got or tiered["undescribed"] or unbounded["undescribed"]:
+        raise AssertionError(f"the drill's alert multisets are empty or "
+                             f"cut by the per-step decode cap: {out}")
+    if tiered["dropped_series"] or totals["overflow"] \
+            or not totals["evictions"] or not totals["promotions"]:
+        raise AssertionError(f"working-set tier: {out}")
+    if not out["alert_multisets_equal"]:
+        raise AssertionError("the tiered run's alerts differ from the "
+                             "unbounded run's")
+    return out
+
+
 # -- main ---------------------------------------------------------------
 
 def main() -> int:
@@ -1124,7 +1778,8 @@ def main() -> int:
     main = phase_main_path(main_blocks, device)
     emit("main_path", **main)
 
-    parity = phase_parity(parity_blocks, device)
+    cpu_parity = score_stream(parity_blocks, "cpu")
+    parity = phase_parity(parity_blocks, cpu_parity, device)
     emit("parity", **parity)
     check_parity(parity)
 
@@ -1165,7 +1820,6 @@ def main() -> int:
     emit("tad_traffic", seconds=time.perf_counter() - t0, rows=len(flows))
     tad = phase_tad(flows, device)
     emit("tad_path", **tad)
-    del flows
 
     tad_parity = phase_tad_parity(device)
     emit("tad_parity", std_rtol=TAD_STD_RTOL, calc_rtol=TAD_CALC_RTOL,
@@ -1191,6 +1845,40 @@ def main() -> int:
         "ms_f64": at_tad["ms_f64"],
         "bound_full_ms": at_tad["bound_full_ms"],
     })
+
+    # The manager slice: the same paths through the port's manager.
+    manager = phase_manager_path(main_blocks, device)
+    emit("manager_path", **manager)
+    manager_parity = phase_manager_parity(parity_blocks, cpu_parity,
+                                          device)
+    emit("manager_parity", rtol=RTOL, kmeans_moved_limit=KMEANS_MOVED,
+         kmeans_rtol=KMEANS_RTOL, **manager_parity)
+    check_manager_parity(manager_parity)
+    t0 = time.perf_counter()
+    tad_blocks = encode_blocks(flows)
+    emit("manager_tad_traffic", seconds=time.perf_counter() - t0,
+         blocks=len(tad_blocks))
+    manager_tad = phase_manager_tad(tad_blocks, flows, device)
+    emit("manager_tad", **manager_tad)
+    del flows, tad_blocks
+    emit("manager_restart",
+         **phase_manager_restart(main_blocks[:RESTART_BLOCKS], device))
+    tier = phase_state_tier(device)
+    emit("state_tier", **tier)
+
+    # The manager slice's paths are this slice's main paths: B1's
+    # launches from /ingest traffic, B2's from the API's DBSCAN job.
+    kernels[0].update(
+        launches=manager["b1_launches"],
+        launches_by_path={"main_path": main["b1_launches"],
+                          "manager_path": manager["b1_launches"],
+                          "state_tier": tier["tiered"]["b1_launches"]},
+        launches_per_ingest_s=manager["b1_launches_per_s"])
+    kernels[1].update(
+        launches=manager_tad["jobs"]["DBSCAN"]["b2_launches"],
+        launches_by_path={
+            "tad_path": tad["algos"]["DBSCAN"]["b2_launches"],
+            "manager_tad": manager_tad["jobs"]["DBSCAN"]["b2_launches"]})
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

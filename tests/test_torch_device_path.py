@@ -29,6 +29,7 @@ from theia_tpu_torch.data import synth as port_synth
 from theia_tpu_torch.manager.ingest import IngestManager
 from theia_tpu_torch.ops import fused_detector as fd
 from theia_tpu_torch.ops import sketch
+from theia_tpu_torch.store import FlowDatabase as PortFlowDatabase
 from theia_tpu_torch.store import wire as port_wire
 
 HH_RTOL = 1e-5
@@ -278,8 +279,13 @@ def test_auto_engine_and_rejections():
         im.close()
     with pytest.raises(ValueError):
         IngestManager(None, engine="warp", device="cpu")
-    with pytest.raises(ValueError):
-        IngestManager(FlowDatabase(), device="cpu")
+    # the request half is ported: the manager takes a flow store
+    db = PortFlowDatabase()
+    im = IngestManager(db, n_shards=1, device="cpu")
+    try:
+        assert im.db is db
+    finally:
+        im.close()
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -8,11 +8,14 @@ numpy, never jax and never theia_tpu: host-only modules it needs are
 kept as copies, held equal to their originals by
 tests/test_torch_copies.py.
 
-Ported so far (the live ingest-and-score path): TBLK decode →
-ingest-global key remap → per-shard detectors (EWMA/Welford
-per-connection scan, Count-Min-Sketch heavy hitters, online k-means)
-→ the alert ring. Every TPU kernel on that path is a CUDA C++ kernel
-under `csrc/`, built with nvcc at first use (`ops/_build.py`).
+Ported so far: the live ingest-and-score path (TBLK decode →
+ingest-global key remap → per-shard detectors: EWMA/Welford
+per-connection scan, Count-Min-Sketch heavy hitters, online k-means →
+the alert ring), the TAD batch job, and the manager that serves both
+(`python -m theia_tpu_torch.manager`: POST /ingest through admission,
+dedup, the WAL and the parts store; TAD jobs through the API). Every
+TPU kernel on those paths is a CUDA C++ kernel under `csrc/`, built
+with nvcc at first use (`ops/_build.py`).
 
 Device rule: entry points take `device=` (default "cuda") and raise
 when CUDA is unavailable unless the caller passed device="cpu"; on a

@@ -165,7 +165,8 @@ class StreamingDetector:
     def __init__(self, capacity: int = 65536,
                  alpha: float = DEFAULT_ALPHA,
                  value_column: str = "throughput",
-                 clock=time.perf_counter, device="cuda") -> None:
+                 clock=time.perf_counter, tier=None,
+                 device="cuda") -> None:
         self.device = resolve_device(device)
         self.capacity = capacity
         self.alpha = alpha
@@ -181,6 +182,13 @@ class StreamingDetector:
         self._slot_keys: List[Optional[bytes]] = []
         self._n_alloc = 0
         self.dropped_series = 0
+        #: optional working-set tier (ingest/state_tier.WorkingSetTier):
+        #: when attached, slot assignment goes through the tier —
+        #: capacity overflow spills LRU state instead of dropping new
+        #: series, and spilled state is restored exactly on re-arrival
+        self.tier = tier
+        if tier is not None:
+            tier.attach(self)
 
     @property
     def n_series(self) -> int:
@@ -218,9 +226,12 @@ class StreamingDetector:
         packed = keys.view(np.dtype((np.void, keys.itemsize *
                                      keys.shape[1]))).ravel()
         uniq, inverse = np.unique(packed, return_inverse=True)
-        slots_u = np.fromiter(
-            (self._slot_for(k.tobytes()) for k in uniq),
-            dtype=np.int64, count=len(uniq))
+        if self.tier is not None:
+            slots_u = self.tier.assign(self, uniq)
+        else:
+            slots_u = np.fromiter(
+                (self._slot_for(k.tobytes()) for k in uniq),
+                dtype=np.int64, count=len(uniq))
         slots = slots_u[inverse]
         ok = slots >= 0
 

@@ -1,1 +1,20 @@
-"""The fused device scoring pipeline (`device_path`)."""
+"""Ingest paths: wire bytes -> columnar blocks (native C++ + fallback),
+plus the exactly-once producer client (client.py)."""
+
+from .client import IngestClient, IngestError, default_ingest_format, \
+    make_block_encoder
+from .native import (
+    BLOCK_MAGIC,
+    TBLK_MAGIC,
+    BlockEncoder,
+    TblkEncoder,
+    TsvDecoder,
+    decode_tblk,
+    encode_tsv,
+    native_available,
+)
+
+__all__ = ["BLOCK_MAGIC", "TBLK_MAGIC", "BlockEncoder", "TblkEncoder",
+           "TsvDecoder", "decode_tblk", "encode_tsv",
+           "native_available", "IngestClient", "IngestError",
+           "default_ingest_format", "make_block_encoder"]

@@ -1,0 +1,407 @@
+"""Producer-side ingest client: exactly-once retried POST /ingest.
+
+The manager's overload-control plane (manager/admission.py) answers
+over-capacity requests with **429 + Retry-After** and transient
+unavailability with **503**; a producer that times out or gets shed
+must RETRY THE SAME BATCH — and the retry must not double-insert if
+the first attempt actually landed (ack lost on the wire, manager
+killed after the WAL append). This client implements that contract so
+every producer (the `theia ingest` CLI, bench.py's overload legs,
+operator scripts) gets it right once:
+
+  * every batch is stamped `?stream=<id>&seq=<n>` — the manager's
+    per-stream dedup window makes a retry idempotent, including
+    across a manager kill -9 + WAL recovery;
+  * 429 sleeps `Retry-After` (the precise `retryAfterSeconds` from
+    the JSON body when present) plus jittered capped backoff, so a
+    rejected fleet does not return in lockstep;
+  * 503 / connection errors sleep jittered capped backoff alone;
+  * any other HTTP error (400 malformed payload, 401/403 auth) is
+    permanent and raised immediately — retrying a payload the manager
+    called malformed would reset the stream forever.
+
+TFB2 discipline note: blocks from one BlockEncoder carry dictionary
+DELTAS, so a rejected block must be retried (not skipped) before the
+next block is sent — exactly what `send()` does. Duplicate acks do
+not decode on the manager, so a retry after a lost ack leaves the
+stream's delta chain consistent.
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import os
+import random
+import ssl
+import time
+import urllib.error
+import urllib.parse
+import urllib.request
+import uuid
+from typing import Callable, Dict, Optional
+
+from ..obs import trace as _trace
+from ..utils.backoff import jittered_backoff
+from ..utils.logging import get_logger
+
+logger = get_logger("ingest-client")
+
+
+class IngestError(Exception):
+    """Permanent ingest failure (malformed payload, auth, or retry
+    budget exhausted)."""
+
+
+def parse_retry_after(headers, body: str) -> float:
+    """The one place the 429 retry-hint fallback chain lives (shared
+    with the CLI's error taxonomy): the precise `retryAfterSeconds`
+    float from the JSON body when present, else the integer
+    Retry-After header, else 1s."""
+    try:
+        ra = json.loads(body).get("retryAfterSeconds")
+        if ra is not None:
+            return max(0.0, float(ra))
+    except Exception:
+        pass
+    try:
+        return max(0.0, float(headers.get("Retry-After", "1")))
+    except (TypeError, ValueError):
+        return 1.0
+
+
+def default_ingest_format() -> str:
+    """Producer-side wire format: THEIA_INGEST_FORMAT = `tblk`
+    (default — self-contained columnar blocks, stateless decode) or
+    `tfb2` (the stateful dictionary-delta stream format, kept for
+    mixed fleets and downgrade paths). The server needs no matching
+    knob: it content-negotiates every request by magic bytes."""
+    fmt = (os.environ.get("THEIA_INGEST_FORMAT", "") or "tblk")
+    fmt = fmt.strip().lower()
+    if fmt not in ("tblk", "tfb2"):
+        raise ValueError(
+            f"THEIA_INGEST_FORMAT {fmt!r} is not tblk|tfb2")
+    return fmt
+
+
+def make_block_encoder(fmt: Optional[str] = None, schema=None,
+                       dicts=None):
+    """The one producer-side encoder factory (CLI, bench, tests):
+    returns a `TblkEncoder` or `BlockEncoder` per `fmt` (default:
+    `default_ingest_format()`), both exposing `encode(batch) ->
+    bytes`."""
+    from .native import FLOW_SCHEMA, BlockEncoder, TblkEncoder
+    fmt = fmt or default_ingest_format()
+    cls = TblkEncoder if fmt == "tblk" else BlockEncoder
+    return cls(schema=schema or FLOW_SCHEMA, dicts=dicts)
+
+
+class IngestClient:
+    """One producer stream against a manager's POST /ingest.
+
+    Cluster-aware: `addr` may be a LIST of manager endpoints (or a
+    comma-separated string) — on connection refusal / 5xx the client
+    fails over to the next endpoint under the same jittered backoff,
+    so a producer rides a leader failover without reconfiguration. A
+    `307 + Location` answer (a follower pointing at the current
+    leader, or a non-owner node pointing at the shard owner) re-targets
+    the client immediately, without burning a backoff sleep."""
+
+    def __init__(self, addr, stream: Optional[str] = None,
+                 token: str = "", ca_cert: Optional[str] = None,
+                 timeout: float = 30.0, max_attempts: int = 12,
+                 backoff_base: float = 0.2, backoff_cap: float = 10.0,
+                 rng: Optional[random.Random] = None,
+                 sleep: Callable[[float], None] = time.sleep) -> None:
+        if isinstance(addr, str):
+            addrs = [a.strip() for a in addr.split(",") if a.strip()]
+        else:
+            addrs = [str(a).strip() for a in addr]
+        if not addrs:
+            raise ValueError("at least one manager address required")
+        self.addrs = [a.rstrip("/") for a in addrs]
+        self._addr_i = 0
+        self.stream = stream or f"p-{uuid.uuid4().hex[:12]}"
+        self.token = token
+        self.timeout = timeout
+        self.max_attempts = int(max_attempts)
+        self.backoff_base = backoff_base
+        self.backoff_cap = backoff_cap
+        self._rng = rng if rng is not None else random.Random()
+        self._sleep = sleep
+        self._ctx = (ssl.create_default_context(cafile=ca_cert)
+                     if ca_cert else None)
+        self.seq = 0
+        self._encoder = None   # lazy, built by send_batch()
+        # producer-side ledger (the bench/CLI summary surface)
+        self.rows_acked = 0
+        self.batches_acked = 0
+        self.duplicates = 0
+        self.rejected = 0     # 429 responses absorbed
+        self.retries = 0      # 503/connection retries absorbed
+        self.failovers = 0    # endpoint rotations after a failure
+        self.redirects = 0    # 307 Location re-targets honored
+
+    @property
+    def addr(self) -> str:
+        """The endpoint currently in use (failover/redirect move it)."""
+        return self.addrs[self._addr_i]
+
+    def _fail_over(self) -> None:
+        """Rotate to the next configured endpoint (no-op with one)."""
+        if len(self.addrs) > 1:
+            self._addr_i = (self._addr_i + 1) % len(self.addrs)
+            self.failovers += 1
+
+    def _redirect_to(self, location: str) -> bool:
+        """Honor a Location-style redirect: re-target this client at
+        the indicated node's base address (added to the endpoint list
+        if new). Returns False for an unusable Location."""
+        try:
+            parts = urllib.parse.urlsplit(location)
+        except ValueError:
+            return False
+        if not parts.scheme or not parts.netloc:
+            return False
+        base = f"{parts.scheme}://{parts.netloc}"
+        if base not in self.addrs:
+            self.addrs.append(base)
+        self._addr_i = self.addrs.index(base)
+        self.redirects += 1
+        return True
+
+    def _headers(self, content_type: str = "application/octet-stream"
+                 ) -> Dict[str, str]:
+        h = {"Content-Type": content_type}
+        if self.token:
+            h["Authorization"] = f"Bearer {self.token}"
+        # a router forward running inside a sampled trace context
+        # stamps the context on the wire, so the owner node's spans
+        # join the originating trace; producers outside any trace (the
+        # CLI, the bench) add nothing — the wire is unchanged
+        tp = _trace.traceparent()
+        if tp:
+            h["traceparent"] = tp
+        return h
+
+    def send(self, payload: bytes, seq: Optional[int] = None,
+             stream: Optional[str] = None) -> Dict[str, object]:
+        """POST one batch, retrying until acknowledged (or the attempt
+        budget runs out). Returns the manager's ack; `duplicate: true`
+        means a previous attempt already landed — the ledger counts it
+        once either way. `stream` overrides this client's stream id
+        for one send (the cluster router stamps origin-scoped
+        sub-streams through one shared client per peer)."""
+        if stream is None:
+            stream = self.stream
+            if seq is None:
+                self.seq += 1
+                seq = self.seq
+            else:
+                self.seq = max(self.seq, int(seq))
+        # an explicit stream with seq=None stays UNSTAMPED (the
+        # router forwarding an unstamped producer batch): at-least-
+        # once, the pre-seq contract — the auto-increment belongs to
+        # the client's own stream only
+        last: Optional[str] = None
+        redirects_left = len(self.addrs) + 4
+        for attempt in range(1, self.max_attempts + 1):
+            url = (f"{self.addr}/ingest?"
+                   f"stream={urllib.parse.quote(stream)}"
+                   + (f"&seq={seq}" if seq is not None else ""))
+            try:
+                req = urllib.request.Request(
+                    url, method="POST", data=payload,
+                    headers=self._headers())
+                with urllib.request.urlopen(
+                        req, timeout=self.timeout,
+                        context=self._ctx) as resp:
+                    out = json.loads(resp.read())
+                if out.get("duplicate"):
+                    self.duplicates += 1
+                else:
+                    self.rows_acked += int(out.get("rows", 0))
+                self.batches_acked += 1
+                return out
+            except urllib.error.HTTPError as e:
+                body = e.read().decode(errors="replace")
+                if e.code in (307, 308):
+                    # "not the node you want": a follower naming the
+                    # leader, a non-owner naming the shard owner —
+                    # re-target and retry immediately (no backoff; the
+                    # named node is presumed healthy)
+                    loc = e.headers.get("Location", "")
+                    redirects_left -= 1
+                    if redirects_left >= 0 and self._redirect_to(loc):
+                        logger.v(1).info(
+                            "ingest stream=%s redirected to %s",
+                            stream, self.addr)
+                        continue
+                    raise IngestError(
+                        f"batch seq={seq} redirect refused "
+                        f"(Location {loc!r}: unusable or a redirect "
+                        f"loop)")
+                if e.code == 429:
+                    self.rejected += 1
+                    delay = (parse_retry_after(e.headers, body)
+                             + jittered_backoff(self.backoff_base,
+                                                self.backoff_cap,
+                                                attempt, self._rng))
+                    last = f"429: {body[:200]}"
+                elif e.code >= 500:
+                    # 503 unavailable AND 500: the server records the
+                    # ack whenever the insert leg succeeded even if
+                    # the request then 500'd (detector exception) —
+                    # retrying the same seq either lands the batch or
+                    # collects the duplicate ack; aborting would lose
+                    # it. Only 4xx (malformed payload, auth) is
+                    # permanent.
+                    self.retries += 1
+                    delay = jittered_backoff(self.backoff_base,
+                                             self.backoff_cap,
+                                             attempt, self._rng)
+                    last = f"{e.code}: {body[:200]}"
+                    # a 5xx node may be mid-failover: try a peer next
+                    self._fail_over()
+                else:
+                    raise IngestError(
+                        f"batch seq={seq} permanently rejected "
+                        f"({e.code}): {body[:500]}")
+            except (OSError, http.client.HTTPException) as e:
+                # Transport failure at ANY phase: URLError (connect),
+                # raw socket.timeout/TimeoutError (urllib does NOT
+                # wrap read-phase timeouts), RemoteDisconnected /
+                # BadStatusLine (mid-response hangup) — all OSError or
+                # HTTPException. The retry-with-same-seq discipline
+                # makes "timed out but landed" safe: the manager
+                # answers the retry duplicate:true.
+                self.retries += 1
+                delay = jittered_backoff(self.backoff_base,
+                                         self.backoff_cap, attempt,
+                                         self._rng)
+                last = (f"unreachable: "
+                        f"{getattr(e, 'reason', None) or e!r}")
+                # connection refused / timed out: rotate endpoints so
+                # a killed leader doesn't eat the whole retry budget
+                self._fail_over()
+            if attempt >= self.max_attempts:
+                break   # budget spent — don't sleep just to raise
+            logger.v(1).info(
+                "ingest stream=%s seq=%d attempt %d/%d: %s; retrying "
+                "in %.2fs", self.stream, seq, attempt,
+                self.max_attempts, last, delay)
+            self._sleep(delay)
+        raise IngestError(
+            f"batch seq={seq} not acknowledged after "
+            f"{self.max_attempts} attempts (last: {last})")
+
+    def send_batch(self, batch, seq: Optional[int] = None,
+                   stream: Optional[str] = None) -> Dict[str, object]:
+        """Encode a ColumnarBatch ONCE (per THEIA_INGEST_FORMAT) and
+        send it — the producer-side half of the zero-copy path: with
+        the TBLK default these exact column bytes are what admission
+        charges, the router gathers, and the WAL journals."""
+        if self._encoder is None:
+            self._encoder = make_block_encoder()
+        return self.send(self._encoder.encode(batch), seq=seq,
+                         stream=stream)
+
+    def request_json(self, method: str, path: str,
+                     doc: Optional[Dict] = None,
+                     timeout: Optional[float] = None
+                     ) -> Dict[str, object]:
+        """One JSON API request under the SAME endpoint-failover /
+        redirect / backoff machinery as `send()` — so a CLI verb (the
+        `theia query` read path) works against ANY cluster node:
+        connection refusal and 5xx rotate endpoints, 429 honors
+        Retry-After, 307/308 re-target at the node named in Location.
+        Unlike `send()` this carries no ingest ledger or seq contract;
+        it is for idempotent control/read calls."""
+        raw = self.request_raw(method, path, doc=doc, timeout=timeout)
+        return json.loads(raw) if raw else {}
+
+    def request_text(self, method: str, path: str,
+                     timeout: Optional[float] = None) -> str:
+        """`request_json` for text bodies (the Prometheus exposition
+        `theia top --cluster` scrapes per node) — same failover/
+        redirect/backoff machinery, no JSON decode."""
+        return self.request_raw(method, path,
+                                timeout=timeout).decode(
+                                    errors="replace")
+
+    def request_raw(self, method: str, path: str,
+                    doc: Optional[Dict] = None,
+                    timeout: Optional[float] = None) -> bytes:
+        payload = (json.dumps(doc).encode() if doc is not None
+                   else None)
+        headers = self._headers(content_type="application/json")
+        last: Optional[str] = None
+        redirects_left = len(self.addrs) + 4
+        for attempt in range(1, self.max_attempts + 1):
+            try:
+                req = urllib.request.Request(
+                    self.addr + path, method=method, data=payload,
+                    headers=headers)
+                with urllib.request.urlopen(
+                        req, timeout=timeout or self.timeout,
+                        context=self._ctx) as resp:
+                    return resp.read()
+            except urllib.error.HTTPError as e:
+                body = e.read().decode(errors="replace")
+                if e.code in (307, 308):
+                    loc = e.headers.get("Location", "")
+                    redirects_left -= 1
+                    if redirects_left >= 0 and self._redirect_to(loc):
+                        logger.v(1).info("%s %s redirected to %s",
+                                         method, path, self.addr)
+                        continue
+                    raise IngestError(
+                        f"{method} {path} redirect refused "
+                        f"(Location {loc!r}: unusable or a loop)")
+                if e.code == 429:
+                    self.rejected += 1
+                    delay = (parse_retry_after(e.headers, body)
+                             + jittered_backoff(self.backoff_base,
+                                                self.backoff_cap,
+                                                attempt, self._rng))
+                    last = f"429: {body[:200]}"
+                elif e.code >= 500:
+                    self.retries += 1
+                    delay = jittered_backoff(self.backoff_base,
+                                             self.backoff_cap,
+                                             attempt, self._rng)
+                    last = f"{e.code}: {body[:200]}"
+                    self._fail_over()
+                else:
+                    raise IngestError(
+                        f"{method} {path} failed ({e.code}): "
+                        f"{body[:500]}")
+            except (OSError, http.client.HTTPException) as e:
+                self.retries += 1
+                delay = jittered_backoff(self.backoff_base,
+                                         self.backoff_cap, attempt,
+                                         self._rng)
+                last = (f"unreachable: "
+                        f"{getattr(e, 'reason', None) or e!r}")
+                self._fail_over()
+            if attempt >= self.max_attempts:
+                break
+            logger.v(1).info(
+                "%s %s attempt %d/%d: %s; retrying in %.2fs",
+                method, path, attempt, self.max_attempts, last, delay)
+            self._sleep(delay)
+        raise IngestError(
+            f"{method} {path} not answered after "
+            f"{self.max_attempts} attempts (last: {last})")
+
+    def summary(self) -> Dict[str, object]:
+        return {
+            "stream": self.stream,
+            "batchesAcked": self.batches_acked,
+            "rowsAcked": self.rows_acked,
+            "duplicates": self.duplicates,
+            "rejected429": self.rejected,
+            "transientRetries": self.retries,
+            "failovers": self.failovers,
+            "redirects": self.redirects,
+        }

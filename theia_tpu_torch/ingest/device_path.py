@@ -84,7 +84,8 @@ _EXTRA_COLUMNS = ("flowEndSeconds", "octetDeltaCount",
 #: the ring, so only those are worth decoding
 _MAX_DESCRIBED_ALERTS = 1000
 
-#: per-step device times kept for stats (milliseconds, CUDA only)
+#: recent step device times (ms, CUDA only) and alert latencies
+#: kept for stats
 _DEVICE_TIMES_KEPT = 4096
 
 
@@ -259,6 +260,10 @@ class FusedDetectorEngine:
         #: (T, U, live slots) of every stream tile handed to the fused
         #: step, counted from the host plans (what B1 was given)
         self.tiles: collections.Counter = collections.Counter()
+        #: the alert latency of each recent item that raised connection
+        #: alerts, s (the latency_s its alerts carry)
+        self.alert_latency_s: Deque[float] = collections.deque(
+            maxlen=_DEVICE_TIMES_KEPT)
         self._closed = threading.Event()
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="theia-fused-scorer")
@@ -581,6 +586,8 @@ class FusedDetectorEngine:
                             (w, r, int(w.splan.present[c])))
             for ii, it in enumerate(items):
                 latency = now - it.t_arrival
+                if per_conn[ii]:
+                    self.alert_latency_s.append(latency)
                 conn: List[Dict[str, object]] = []
                 # newest-survive cap, mirroring the sharded path's
                 # per-request MAX_ALERTS decode bound

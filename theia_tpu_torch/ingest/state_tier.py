@@ -1,0 +1,637 @@
+"""Flow-state working-set tier: hot device slots, hashed-columnar DRAM
+spill, exact promote-on-re-arrival.
+
+The streaming detector's per-connection state lives in fixed
+device-resident slot arrays; before this module, slot-capacity
+overflow was a hard drop (`theia_detector_series_dropped_total`) — a
+cluster tracking tens of millions of concurrent connections sheds
+exactly the long-tail flows where scans and exfiltration live
+(ROADMAP open item 3). This module adopts the working-set
+architecture of arXiv:1902.04143: keep the *active* flow set hot,
+spill idle state to a compact DRAM tier, restore it exactly on
+re-arrival — so the slot budget becomes a memory-bandwidth knob
+instead of a correctness cliff.
+
+Three tiers per detector shard:
+
+  hot   the existing device slot arrays (`StreamState`), now with a
+        host-side per-slot last-touched generation counter. Occupancy
+        crossing `THEIA_STATE_HOT_WATERMARK` evicts LRU-by-generation
+        victims down to `THEIA_STATE_EVICT_TO` — one jitted gather per
+        eviction batch, never per-row Python.
+  warm  evicted state blocks in DRAM, stored in the parts/WAL
+        width-reduced column encoding (`store/wire.py` — the same
+        codec the WAL record body and part files use), keyed by the
+        packed connection key. Promotion on re-arrival decodes only
+        the state columns of only the blocks that hold hits and
+        scatters them back in the same jitted step that zeroes
+        brand-new slots — promoted state is bit-identical to
+        never-evicted state (float32 survives the f64 column round
+        trip exactly).
+  cold  every spill is ALSO appended to the `detstate` result table,
+        which rides the standard store planes (WAL journal, snapshot,
+        replication, resync) — so spilled state survives kill -9 and
+        failover. Warm blocks idle past `THEIA_STATE_AGE_OUT_SECONDS`
+        are dropped from DRAM; their keys fall back to a hash-indexed
+        cold map resolved against the table on re-arrival.
+
+Identity across restarts: dictionary codes are NOT restart-stable, so
+the durable rows key on `keyHash` — a 64-bit BLAKE2b digest of the
+string-resolved connection 6-tuple — and recovery rebuilds each
+shard's cold index from the table by re-hashing the stored strings.
+
+Batching contract: `WorkingSetTier.assign` runs inside
+`StreamingDetector.build_plan` — i.e. inside the fused micro-batch
+step's host half AND each sharded-engine shard pass — and is
+O(distinct keys) Python + O(1) extra device dispatches per
+micro-batch, the same discipline as the slot mapping it replaces
+(profile-asserted in tests/test_state_tier.py).
+
+Fault sites: ``state.spill`` / ``state.promote`` fire BEFORE any tier
+mutation, so an injected error fails the batch with state intact (the
+retry re-runs the identical spill/promote); ``state.age_out`` is
+caught and deferred — aging out is maintenance, not correctness.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import time
+import weakref
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..obs import metrics as _metrics
+from ..store import wire as _wire
+from ..utils import get_logger
+from ..utils.faults import FaultError
+from ..utils.faults import fire as _fire_fault
+
+logger = get_logger("state_tier")
+
+#: the durable spill table's name in store.RESULT_TABLE_SCHEMAS —
+#: registering it there is what buys WAL/snapshot/replication/resync
+#: coverage for free
+DETSTATE_TABLE = "detstate"
+
+#: the state columns of one spilled slot, in StreamState field order —
+#: both the warm block encoding and the detstate table use these names
+STATE_COLUMNS = ("ewma", "count", "mean", "m2")
+
+_M_EVICTIONS = _metrics.counter(
+    "theia_state_evictions_total",
+    "Hot detector slots spilled to the warm DRAM tier "
+    "(LRU-by-generation eviction at the occupancy watermark)")
+_M_PROMOTIONS = _metrics.counter(
+    "theia_state_promotions_total",
+    "Spilled connection series promoted back to hot device slots on "
+    "re-arrival, by source tier",
+    labelnames=("tier",))
+_M_AGE_OUTS = _metrics.counter(
+    "theia_state_age_outs_total",
+    "Warm spill-block entries aged out of DRAM to the cold "
+    "(store-resident) tier")
+_M_OVERFLOW = _metrics.counter(
+    "theia_state_overflow_total",
+    "Distinct keys a single micro-batch could not admit because every "
+    "hot slot was touched by that same batch (the keys retry on their "
+    "next arrival — not a permanent drop)")
+
+#: live tiers, for the scrape-time occupancy gauges (weak: a closed
+#: manager's tiers drop out of the sums on their own)
+_LIVE_TIERS: "weakref.WeakSet[WorkingSetTier]" = weakref.WeakSet()
+
+_G_HOT = _metrics.gauge(
+    "theia_state_hot_series",
+    "Connection series currently resident in hot device slots, "
+    "summed over every live working-set tier in the process")
+_G_SPILLED = _metrics.gauge(
+    "theia_state_spilled_series",
+    "Connection series currently spilled out of hot slots "
+    "(warm DRAM blocks + cold store-only index), summed over every "
+    "live working-set tier")
+_G_HOT.set_callback(
+    lambda: float(sum(t.n_hot for t in _LIVE_TIERS)))
+_G_SPILLED.set_callback(
+    lambda: float(sum(t.spilled_count for t in _LIVE_TIERS)))
+
+#: generation value marking a free slot (never a victim candidate;
+#: real generations count up from 1)
+_FREE = np.iinfo(np.int64).max
+
+
+def enabled() -> bool:
+    """THEIA_STATE_TIER=1 opts the manager's detector shards into the
+    working-set tier. Off by default: the legacy drop-at-capacity
+    behavior is load-bearing for sizing experiments and is what the
+    seed tests assert."""
+    return os.environ.get("THEIA_STATE_TIER", "").strip().lower() in (
+        "1", "on", "true", "yes")
+
+
+class TierConfig(NamedTuple):
+    """Eviction/aging policy knobs (all THEIA_STATE_* envs)."""
+    hot_watermark: float = 0.9    # evict when occupancy would cross
+    evict_to: float = 0.7         # ...down to this occupancy
+    age_out_seconds: float = 900.0  # warm block idle age; 0 = never
+
+    @classmethod
+    def from_env(cls) -> "TierConfig":
+        d = cls()
+        return cls(
+            hot_watermark=float(os.environ.get(
+                "THEIA_STATE_HOT_WATERMARK", d.hot_watermark)),
+            evict_to=float(os.environ.get(
+                "THEIA_STATE_EVICT_TO", d.evict_to)),
+            age_out_seconds=float(os.environ.get(
+                "THEIA_STATE_AGE_OUT_SECONDS", d.age_out_seconds)))
+
+
+def key_hash(resolved: Tuple) -> int:
+    """Restart-stable 64-bit identity of one string-resolved
+    connection 6-tuple (the `keyHash` column). BLAKE2b, not crc32:
+    at tens of millions of tracked flows a 32-bit space collides with
+    near certainty (birthday bound ~77k)."""
+    h = hashlib.blake2b("|".join(str(p) for p in resolved).encode(),
+                        digest_size=8)
+    return int.from_bytes(h.digest(), "little", signed=True)
+
+
+def default_resolver(keys: np.ndarray) -> List[Tuple]:
+    """Resolver for standalone detectors (tests, bench): the raw int64
+    key codes ARE the identity — stable for the process lifetime,
+    which is all an un-stored tier needs. The manager supplies a
+    string-decoding resolver for restart-stable durable identity."""
+    return [tuple(int(v) for v in row) for row in keys]
+
+
+class _SpillBlock:
+    """One eviction batch in the warm tier: the state columns as an
+    encoded TBLK column section (width-reduced, the WAL/parts codec),
+    plus numpy sidecars for the keys so classification and age-out
+    never decode the body."""
+
+    __slots__ = ("body", "keys", "hashes", "seqs", "live", "n_live",
+                 "spilled_at")
+
+    def __init__(self, body: bytes, keys: np.ndarray,
+                 hashes: np.ndarray, seqs: np.ndarray,
+                 spilled_at: float) -> None:
+        self.body = body
+        self.keys = keys            # [N, 6] int64 packed key rows
+        self.hashes = hashes        # [N] int64 keyHash
+        self.seqs = seqs            # [N] int64 spill sequence
+        self.live = np.ones(len(keys), bool)
+        self.n_live = len(keys)
+        self.spilled_at = spilled_at
+
+
+class SpillStore:
+    """Adapter between a tier and the `detstate` result table — the
+    cold/durable plane. Rows accumulate per spill (latest `seq` wins
+    on read); `prune` compacts superseded rows."""
+
+    #: columns a cold-promote scan materializes (numeric only — no
+    #: string decode on the promote path)
+    _SCAN_COLUMNS = ("keyHash", "seq") + STATE_COLUMNS
+
+    def __init__(self, table) -> None:
+        self.table = table
+
+    def append(self, rows: Sequence[Dict[str, object]]) -> None:
+        """Journal one eviction batch (Table.insert → WAL before
+        visibility: no spill acknowledgement without durability)."""
+        self.table.insert_rows(rows)
+
+    def lookup(self, hashes: Sequence[int]) -> Dict[int, Tuple]:
+        """keyHash → (ewma, count, mean, m2) at the LATEST spill seq,
+        for the given hashes. One vectorized isin over the table scan;
+        Python only over the matched rows (cold hits are rare)."""
+        if not hashes or self.table is None or len(self.table) == 0:
+            return {}
+        data = self.table.select(columns=list(self._SCAN_COLUMNS))
+        kh = np.asarray(data["keyHash"], np.int64)
+        idx = np.flatnonzero(np.isin(kh, np.asarray(list(hashes),
+                                                    np.int64)))
+        best: Dict[int, Tuple[int, Tuple]] = {}
+        seqs = data["seq"]
+        for i in idx:
+            h, s = int(kh[i]), int(seqs[i])
+            cur = best.get(h)
+            if cur is None or s > cur[0]:
+                best[h] = (s, tuple(
+                    data[c][i] for c in STATE_COLUMNS))
+        return {h: v for h, (_, v) in best.items()}
+
+    def prune(self) -> int:
+        """Delete rows superseded by a later spill of the same key
+        (store maintenance — recovery and cold promotes only ever read
+        the latest seq). Returns rows deleted."""
+        if self.table is None or len(self.table) == 0:
+            return 0
+        data = self.table.select(columns=["keyHash", "seq"])
+        kh = np.asarray(data["keyHash"], np.int64)
+        sq = np.asarray(data["seq"], np.int64)
+        order = np.lexsort((sq, kh))
+        stale = np.zeros(len(kh), bool)
+        # in (hash, seq) order, every row whose successor shares its
+        # hash is superseded
+        stale[order[:-1]] = kh[order[1:]] == kh[order[:-1]]
+        if not stale.any():
+            return 0
+        try:
+            return self.table.delete_where(stale)
+        except ValueError:
+            # an insert raced the scan; next maintenance round prunes
+            return 0
+
+    @staticmethod
+    def recover_cold_indexes(table, n_shards: int,
+                             shard_of: Callable[[str], int]
+                             ) -> List[Dict[int, int]]:
+        """Rebuild each shard's cold index (keyHash → latest seq) from
+        the recovered table — the startup half of crash recovery. The
+        shard assignment re-derives from the destination STRING
+        (restart-stable), never from dictionary codes. O(rows) once at
+        startup."""
+        indexes: List[Dict[int, int]] = [dict()
+                                         for _ in range(n_shards)]
+        if table is None or len(table) == 0:
+            return indexes
+        data = table.select(columns=["keyHash", "seq",
+                                     "destinationIP"])
+        dst_d = data.dicts.get("destinationIP")
+        dst = data["destinationIP"]
+        kh = data["keyHash"]
+        sq = data["seq"]
+        for i in range(len(kh)):
+            s = shard_of(dst_d.decode_one(int(dst[i]))
+                         if dst_d is not None else str(dst[i]))
+            idx = indexes[s % n_shards]
+            h, q = int(kh[i]), int(sq[i])
+            if q >= idx.get(h, -1):
+                idx[h] = q
+        return indexes
+
+
+class WorkingSetTier:
+    """The per-shard three-tier state store. Single-writer, like the
+    detector it attaches to: the caller serializes `assign` (shard
+    lock on the sharded engine, the one scorer thread on the fused
+    engine), so the tier needs no lock of its own."""
+
+    def __init__(self, config: Optional[TierConfig] = None,
+                 store: Optional[SpillStore] = None,
+                 key_resolver: Optional[Callable] = None,
+                 cold_index: Optional[Dict[int, int]] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 wall_clock: Callable[[], float] = time.time) -> None:
+        self.config = config or TierConfig()
+        self.store = store
+        self.resolver = key_resolver or default_resolver
+        self.clock = clock
+        self.wall_clock = wall_clock
+        self.det = None
+        self.capacity = 0
+        self.gen = np.zeros(0, np.int64)
+        self._free: List[int] = []
+        self.generation = 0
+        self.seq = 0
+        self._next_block = 0
+        self.n_hot = 0
+        #: packed key bytes → (block id, row) for warm-resident state
+        self.warm: Dict[bytes, Tuple[int, int]] = {}
+        self.blocks: Dict[int, _SpillBlock] = {}
+        #: keyHash → latest spill seq for store-only (cold) state;
+        #: seeded by SpillStore.recover_cold_indexes after a restart
+        self.cold: Dict[int, int] = dict(cold_index or {})
+        self.evictions = 0
+        self.promotions_warm = 0
+        self.promotions_cold = 0
+        self.age_outs = 0
+        self.overflow = 0
+        _LIVE_TIERS.add(self)
+
+    # -- wiring -----------------------------------------------------------
+
+    def attach(self, detector) -> None:
+        """Bind to a StreamingDetector (called from its __init__):
+        slot bookkeeping switches from bump allocation to the tier's
+        free list + generation array."""
+        self.det = detector
+        self.capacity = detector.capacity
+        self.gen = np.full(self.capacity, _FREE, np.int64)
+        self._free = list(range(self.capacity - 1, -1, -1))
+        detector._slot_keys = [None] * self.capacity
+
+    @property
+    def spilled_count(self) -> int:
+        """Series currently out of hot slots — the admission plane's
+        spill-pressure signal and the `theia top` 'spilled' figure."""
+        return len(self.warm) + len(self.cold)
+
+    def stats(self) -> Dict[str, object]:
+        return {
+            "hotSeries": self.n_hot,
+            "warmSeries": len(self.warm),
+            "coldSeries": len(self.cold),
+            "warmBlocks": len(self.blocks),
+            "evictions": self.evictions,
+            "promotions": self.promotions_warm + self.promotions_cold,
+            "ageOuts": self.age_outs,
+            "overflow": self.overflow,
+        }
+
+    # -- the per-micro-batch entry ----------------------------------------
+
+    def assign(self, det, uniq: np.ndarray) -> np.ndarray:
+        """Slot assignment for one micro-batch's distinct keys
+        (`uniq`: the packed-void unique key array from build_plan).
+        Hot hits refresh their generation; misses are promoted from
+        warm/cold or admitted fresh — after evicting LRU victims if
+        occupancy would cross the watermark. Returns int64 slots
+        (≥ 0 except transient overflow, which returns -1 for this
+        batch only). All device work is one gather (eviction) plus one
+        scatter (promotion + zero-init), whatever the batch holds."""
+        self.generation += 1
+        g = self.generation
+        u = len(uniq)
+        key_bytes = [uniq[i].tobytes() for i in range(u)]
+        slots = np.fromiter(
+            (det._slots.get(kb, -1) for kb in key_bytes),
+            dtype=np.int64, count=u)
+        hot = slots >= 0
+        if hot.any():
+            self.gen[slots[hot]] = g
+        miss = np.flatnonzero(~hot)
+        if miss.size:
+            keys_mat = uniq.view(np.int64).reshape(u, 6)
+            slots[miss] = self._admit(det, g,
+                                      [key_bytes[i] for i in miss],
+                                      keys_mat[miss])
+        self._age_out_tick()
+        return slots
+
+    # -- admission: classify → evict → promote+allocate --------------------
+
+    def _admit(self, det, g: int, miss_keys: List[bytes],
+               miss_mat: np.ndarray) -> np.ndarray:
+        n_miss = len(miss_keys)
+        # classify: warm by packed key; otherwise resolve + hash once
+        # per missing key to probe the cold index
+        warm_hits: List[Tuple[int, int, int]] = []   # (i, block, row)
+        rest: List[int] = []
+        for i, kb in enumerate(miss_keys):
+            e = self.warm.get(kb)
+            if e is not None:
+                warm_hits.append((i, e[0], e[1]))
+            else:
+                rest.append(i)
+        cold_hits: List[Tuple[int, int]] = []        # (i, keyHash)
+        if rest and self.cold:
+            resolved = self.resolver(miss_mat[rest])
+            still_new: List[int] = []
+            for j, i in enumerate(rest):
+                h = key_hash(resolved[j])
+                if h in self.cold:
+                    cold_hits.append((i, h))
+                else:
+                    still_new.append(i)
+            rest = still_new
+
+        # evict before allocating, if admitting the misses would cross
+        # the watermark; victims are LRU-by-generation among occupied
+        # slots NOT touched by this batch
+        high = int(self.config.hot_watermark * self.capacity)
+        if self.n_hot + n_miss > max(high, 1):
+            want = self.n_hot + n_miss \
+                - int(self.config.evict_to * self.capacity)
+            cand = np.flatnonzero(self.gen < g)   # occupied, untouched
+            k = min(max(want, 0), cand.size)
+            if k > 0:
+                part = np.argpartition(self.gen[cand], k - 1)[:k]
+                self._spill(det, cand[part])
+
+        # one scatter restores promoted state AND zero-inits brand-new
+        # slots; assemble its payload in miss order
+        ewma = np.zeros(n_miss, np.float32)
+        count = np.zeros(n_miss, np.int32)
+        mean = np.zeros(n_miss, np.float32)
+        m2 = np.zeros(n_miss, np.float32)
+        if warm_hits or cold_hits:
+            _fire_fault("state.promote",
+                        warm=len(warm_hits), cold=len(cold_hits))
+        if warm_hits:
+            self._promote_warm(warm_hits, miss_keys,
+                               ewma, count, mean, m2)
+        if cold_hits:
+            self._promote_cold(cold_hits, ewma, count, mean, m2)
+
+        # allocate slots (free list); keys beyond the free slots are a
+        # transient overflow — every slot is held by THIS batch, so
+        # there is nothing left to evict. They retry next arrival.
+        n_admit = min(n_miss, len(self._free))
+        if n_admit < n_miss:
+            n_over = n_miss - n_admit
+            self.overflow += n_over
+            _M_OVERFLOW.inc(n_over)
+            logger.v(1).info(
+                "state tier overflow: %d keys deferred (hot budget %d "
+                "fully held by one micro-batch)", n_over,
+                self.capacity)
+        out = np.full(n_miss, -1, np.int64)
+        if n_admit == 0:
+            return out
+        new_slots = np.asarray(
+            [self._free.pop() for _ in range(n_admit)], np.int64)
+        for j in range(n_admit):
+            s = int(new_slots[j])
+            det._slots[miss_keys[j]] = s
+            det._slot_keys[s] = miss_keys[j]
+        out[:n_admit] = new_slots
+        self.gen[new_slots] = g
+        self.n_hot += n_admit
+        det._n_alloc = self.n_hot
+        det.state = _restore(det.state, new_slots, self.capacity,
+                             ewma[:n_admit], count[:n_admit],
+                             mean[:n_admit], m2[:n_admit])
+        return out
+
+    # -- spill (hot → warm + cold) -----------------------------------------
+
+    def _spill(self, det, victims: np.ndarray) -> None:
+        """Evict `victims` (slot ids): one jitted gather, one wire
+        encode, one durable table append — THEN the in-memory index
+        flip, so an injected/real failure anywhere leaves hot state
+        fully intact for the retry."""
+        _fire_fault("state.spill", n=int(victims.size))
+        k = int(victims.size)
+        keys_b = [det._slot_keys[int(s)] for s in victims]
+        keys_mat = np.stack([np.frombuffer(kb, np.int64)
+                             for kb in keys_b])
+        vals = _gather(det.state, victims, self.capacity, k)
+        seqs = np.arange(self.seq, self.seq + k, dtype=np.int64)
+        self.seq += k
+        resolved = self.resolver(keys_mat)
+        hashes = np.fromiter((key_hash(t) for t in resolved),
+                             np.int64, count=k)
+        from ..schema import ColumnarBatch
+        body = _wire.encode_columns_body(ColumnarBatch(
+            {"ewma": vals[0].astype(np.float64),
+             "count": vals[1].astype(np.int64),
+             "mean": vals[2].astype(np.float64),
+             "m2": vals[3].astype(np.float64)}, {}))
+        if self.store is not None:
+            now = int(self.wall_clock())
+            self.store.append([
+                {"sourceIP": str(t[0]),
+                 "destinationIP": str(t[2]),
+                 "sourceTransportPort": int(t[1]),
+                 "destinationTransportPort": int(t[3]),
+                 "protocolIdentifier": int(t[4]),
+                 "flowStartSeconds": int(t[5]),
+                 "ewma": float(vals[0][j]),
+                 "count": int(vals[1][j]),
+                 "mean": float(vals[2][j]),
+                 "m2": float(vals[3][j]),
+                 "seq": int(seqs[j]),
+                 "keyHash": int(hashes[j]),
+                 "timeSpilled": now}
+                for j, t in enumerate(resolved)])
+        # durable: now flip the in-memory tiers
+        bid = self._next_block
+        self._next_block += 1
+        self.blocks[bid] = _SpillBlock(body, keys_mat, hashes, seqs,
+                                       self.clock())
+        for j, kb in enumerate(keys_b):
+            self.warm[kb] = (bid, j)
+            del det._slots[kb]
+            det._slot_keys[int(victims[j])] = None
+            # a re-spill supersedes any cold entry for the same key
+            self.cold.pop(int(hashes[j]), None)
+        self.gen[victims] = _FREE
+        self._free.extend(int(s) for s in victims)
+        self.n_hot -= k
+        det._n_alloc = self.n_hot
+        self.evictions += k
+        _M_EVICTIONS.inc(k)
+
+    # -- promotion (warm/cold → hot) ---------------------------------------
+
+    def _promote_warm(self, hits: List[Tuple[int, int, int]],
+                      miss_keys: List[bytes],
+                      ewma, count, mean, m2) -> None:
+        by_block: Dict[int, List[Tuple[int, int]]] = {}
+        for i, bid, row in hits:
+            by_block.setdefault(bid, []).append((i, row))
+        for bid, pairs in by_block.items():
+            block = self.blocks[bid]
+            batch, _ = _wire.decode_columns(
+                memoryview(block.body), 0,
+                columns=frozenset(STATE_COLUMNS))
+            rows = np.asarray([r for _, r in pairs], np.int64)
+            idx = np.asarray([i for i, _ in pairs], np.int64)
+            ewma[idx] = batch["ewma"][rows].astype(np.float32)
+            count[idx] = batch["count"][rows].astype(np.int32)
+            mean[idx] = batch["mean"][rows].astype(np.float32)
+            m2[idx] = batch["m2"][rows].astype(np.float32)
+            block.live[rows] = False
+            block.n_live -= len(rows)
+            for i, _ in pairs:
+                del self.warm[miss_keys[i]]
+            if block.n_live <= 0:
+                del self.blocks[bid]
+        self.promotions_warm += len(hits)
+        _M_PROMOTIONS.labels(tier="warm").inc(len(hits))
+
+    def _promote_cold(self, hits: List[Tuple[int, int]],
+                      ewma, count, mean, m2) -> None:
+        found = (self.store.lookup([h for _, h in hits])
+                 if self.store is not None else {})
+        n = 0
+        for i, h in hits:
+            self.cold.pop(h, None)
+            row = found.get(h)
+            if row is None:
+                # index entry with no surviving store row (pruned
+                # away, or a torn mid-spill WAL record discarded at
+                # recovery): admit as a fresh series
+                continue
+            ewma[i] = np.float32(row[0])
+            count[i] = np.int32(row[1])
+            mean[i] = np.float32(row[2])
+            m2[i] = np.float32(row[3])
+            n += 1
+        if n:
+            self.promotions_cold += n
+            _M_PROMOTIONS.labels(tier="cold").inc(n)
+
+    # -- aging (warm → cold) -----------------------------------------------
+
+    def _age_out_tick(self) -> None:
+        age = self.config.age_out_seconds
+        if age <= 0 or not self.blocks:
+            return
+        now = self.clock()
+        for bid in [b for b, blk in self.blocks.items()
+                    if now - blk.spilled_at > age]:
+            try:
+                _fire_fault("state.age_out", block=bid)
+            except FaultError as e:
+                # maintenance, not correctness: defer this round
+                logger.v(1).info("age-out deferred by fault: %s", e)
+                return
+            block = self.blocks.pop(bid)
+            rows = np.flatnonzero(block.live)
+            for r in rows:
+                del self.warm[block.keys[r].tobytes()]
+                h = int(block.hashes[r])
+                s = int(block.seqs[r])
+                if s >= self.cold.get(h, -1):
+                    self.cold[h] = s
+            self.age_outs += len(rows)
+            _M_AGE_OUTS.inc(len(rows))
+
+
+# -- slot transfer on the state's device (one gather / one scatter) --------
+
+def _pad_pow2(n: int, minimum: int = 64) -> int:
+    size = minimum
+    while size < n:
+        size <<= 1
+    return size
+
+
+def _gather(state, slots: np.ndarray, capacity: int,
+            k: int) -> Tuple[np.ndarray, ...]:
+    """Gather `k` slots' state to host as numpy arrays — one gather on
+    the state's device, padded to power-of-two buckets as the
+    reference pads its jitted dispatch."""
+    from ..ops.fused_detector import gather_state
+    pad = np.full(_pad_pow2(k), capacity - 1, np.int32)
+    pad[:k] = slots
+    sub = gather_state(state, torch.from_numpy(pad).to(state.count.device))
+    return tuple(a.cpu().numpy()[:k] for a in sub)
+
+
+def _restore(state, slots: np.ndarray, capacity: int,
+             ewma, count, mean, m2):
+    """Scatter promoted + zero-init state into `slots`, in place on the
+    state's device, and return `state`; padding rides the capacity
+    sentinel, which `restore_state` drops."""
+    from ..ops.fused_detector import restore_state
+    n = len(slots)
+    p = _pad_pow2(n)
+    slots_pad = np.full(p, capacity, np.int32)
+    slots_pad[:n] = slots
+    z32 = np.zeros(p, np.float32)
+    e, me, m = z32.copy(), z32.copy(), z32.copy()
+    e[:n], me[:n], m[:n] = ewma, mean, m2
+    c = np.zeros(p, np.int32)
+    c[:n] = count
+    dev = state.count.device
+    return restore_state(state, *(torch.from_numpy(a).to(dev)
+                                  for a in (slots_pad, e, c, me, m)))

@@ -1,55 +1,134 @@
-"""Live alerting: the detector (scoring) half of the manager's ingest
-path.
+"""Network ingest into a running manager + live alerting.
 
-Ports the scoring half of theia_tpu/manager/ingest.py. A decoded flow
-batch (a TBLK block through store/wire.decode_block, say) goes to
-`IngestManager.score_batch`, which remaps its key columns to
-ingest-global codes, partitions its rows by destination shard and
-advances the per-shard detectors — the heavy-hitter / DDoS sketch and
-the per-connection EWMA anomaly engine. Callers publish the alerts on
-the bounded ring (`push_alert`) that `recent_alerts` serves.
+Ports theia_tpu/manager/ingest.py: the request half verbatim, with the
+detectors on a torch device. `IngestManager(device=...)` (default
+"cuda") places detector state; without CUDA the constructor raises
+unless device="cpu". THEIA_DETECTOR_ENGINE=auto resolves on that
+device: fused on CUDA, sharded on the CPU.
 
-The request half — POST /ingest decode, admission, WAL, dedup, the
-store insert pool, cluster routing, the working-set state tier — is
-not ported yet.
+Plays the role of the reference's flow ingestion contract (the Flow
+Aggregator inserts into ClickHouse over its native TCP protocol,
+pkg/util/clickhouse/clickhouse.go:125; schema create_table.sh:31-84):
+producers POST flow batches to the manager —
 
-Concurrency shape: detector state is partitioned by destination into
-N_SHARDS independent shards (THEIA_INGEST_SHARDS, default
-min(8, cores)). Two engines score them (THEIA_DETECTOR_ENGINE):
-"sharded" scores shard by shard under per-shard locks; "fused" rides
-the coalescing device pipeline (ingest/device_path.py); "auto" picks
-fused on a CUDA device and sharded on the CPU.
+    POST /ingest
+        body: a TFB2 binary columnar block (application/octet-stream)
+              or TabSeparated rows (text/tab-separated-values)
+        response: {"rows": N, "alerts": K}
+
+Every ingested batch fans out to the store (materialized views, TTL)
+AND advances the streaming detectors — the heavy-hitter / DDoS sketch
+AND the per-connection EWMA anomaly engine — whose alerts are served
+from a bounded ring:
+
+    GET /alerts?limit=N      most recent alerts, newest first
+
+Alert kinds: "heavy_hitter" / "ddos_shape" (volume + traffic-shape,
+analytics/heavy_hitters.py) and "connection_anomaly" (per-connection
+throughput spike with decoded connection identity and the arrival→alert
+latency_s, analytics/streaming.py). The reference has no streaming
+alert surface at all — its analytics are batch jobs
+(plugins/anomaly-detection/anomaly_detection.py); this is the
+sub-second path the BASELINE north star asks for, made reachable over
+the wire.
+
+Concurrency shape (the shard-parallel, pipelined path):
+
+  * Detector state is partitioned by destination into N_SHARDS
+    independent shards (THEIA_INGEST_SHARDS, default min(8, cores)),
+    each holding its own HeavyHitterDetector + StreamingDetector and
+    its own lock — concurrent producer streams score concurrently
+    instead of queueing on one global detector lock.
+  * Within one request the two independent legs — the store insert
+    (MV fan-out, TTL) and detector scoring — run overlapped, so
+    request latency is max(legs), not their sum.
+  * The ingest-global dictionary remap has its own fine-grained lock;
+    minting a new global code never stalls another shard's scoring.
+
+Overload control (manager/admission.py): every `/ingest` request
+passes the admission plane first — token buckets (THEIA_INGEST_RATE /
+THEIA_INGEST_BURST), pressure watermarks over the insert backlog, WAL
+sync lag, and job queue, and a brownout ladder that sheds the scoring
+leg before rejecting (429 + Retry-After; durability is never shed).
+Producers that stamp batches with `?seq=<n>` get exactly-once retried
+ingest through a bounded per-stream dedup window that survives crash
+recovery via the WAL record tags.
 
 Ordering guarantee: alerts are deterministic PER CONNECTION. A
-destination always hashes to the same shard (a stable string hash),
-the connection 6-tuple contains the destination, and a shard applies
-one stream's batches in ack order.
+destination always hashes to the same shard (a stable string hash,
+not a dictionary code — so the assignment survives restarts), the
+connection 6-tuple contains the destination, and a shard applies one
+stream's batches in ack order; so each connection's EWMA/CMS state
+sees its own points in exactly the order the producer sent them,
+whatever other streams do concurrently. There is no GLOBAL alert
+order across connections, and heavy-hitter shares are evaluated
+against an eventually-consistent cluster-total volume (a shard reads
+its peers' last-published totals without locking them).
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import os
+import threading
+
+from ..analysis.lockdep import named_lock
 import time
 import zlib
-from typing import Deque, Dict, List, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..analysis.lockdep import named_lock
 from ..analytics.heavy_hitters import HeavyHitterDetector
 from ..analytics.streaming import StreamingDetector
+from ..ingest.native import BLOCK_MAGIC, BLOCK_MAGIC_V1, TsvDecoder
+from ..store import wire as _wire
+from ..store.wal import RECORD_MAGIC
 from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from ..schema import ColumnarBatch, DictionaryMapper, StringDictionary
 from ..utils import get_logger
 from ..utils.device import resolve_device
 from ..utils.env import env_int
+from . import admission as _admission
+from .admission import (
+    LEVEL_NAMES,
+    LEVEL_OK,
+    AdmissionController,
+    DedupWindow,
+)
 
 logger = get_logger("ingest")
 
+# Per-stage latency of the pipelined ingest path. The three stages of
+# one request overlap (store-insert ∥ detector), so their histograms
+# are independent distributions, not a partition of request time.
+_M_STAGE = _metrics.histogram(
+    "theia_ingest_stage_seconds",
+    "Per-stage ingest latency (decode under the stream lock; "
+    "store_insert and detector run overlapped)",
+    labelnames=("stage",))
+_M_STAGE_DECODE = _M_STAGE.labels(stage="decode")
+_M_STAGE_STORE = _M_STAGE.labels(stage="store_insert")
+_M_STAGE_DET = _M_STAGE.labels(stage="detector")
+_M_REQUEST = _metrics.histogram(
+    "theia_ingest_request_seconds",
+    "Whole POST /ingest request latency (decode + max(legs))")
+_M_ROWS = _metrics.counter(
+    "theia_ingest_rows_total", "Rows acked on the ingest path")
+_M_BATCHES = _metrics.counter(
+    "theia_ingest_batches_total", "Ingest payloads decoded and acked")
+_M_ERRORS = _metrics.counter(
+    "theia_ingest_errors_total",
+    "Failed ingest requests (decode errors reset the stream; insert "
+    "errors keep detector state advanced)", labelnames=("stage",))
+_M_ALERTS = _metrics.counter(
+    "theia_ingest_alerts_total", "Alerts published to the ring",
+    labelnames=("kind",))
 # Shard-scored rows use the striped increment path: the caller holds
-# the shard lock (or is the fused scorer), so stripe=shard.index has
-# exactly one writer.
+# the shard lock, so stripe=shard.index has exactly one writer.
 _M_SCORED = _metrics.counter(
     "theia_ingest_scored_rows_total",
     "Rows scored by the detector shards (striped per shard)")
@@ -61,22 +140,35 @@ _M_LOCK_WAIT = _metrics.counter(
     "theia_ingest_shard_lock_waits_total",
     "Forced blocking shard-lock acquisitions (every remaining shard "
     "was busy — the convoy case)")
+_M_SHED_ROWS = _metrics.counter(
+    "theia_ingest_shed_rows_total",
+    "Rows whose detector/scoring leg was shed by the brownout ladder "
+    "(the rows themselves were stored and acknowledged)",
+    labelnames=("mode",))
 
 MAX_ALERTS = 1000
 
-MAX_STREAMS = 64
 
-#: selectable scoring engines (THEIA_DETECTOR_ENGINE)
-DETECTOR_ENGINES = ("sharded", "fused", "auto")
+MAX_STREAMS = 64
 
 
 def default_ingest_shards() -> int:
     """Detector shard count: THEIA_INGEST_SHARDS wins, else one shard
-    per host core up to 8."""
+    per host core up to 8 (past that the slices get too small to beat
+    the per-slice dispatch overhead)."""
     n = env_int("THEIA_INGEST_SHARDS", 0)
     if n <= 0:
         n = min(8, os.cpu_count() or 1)
     return max(1, n)
+
+
+#: selectable scoring engines (THEIA_DETECTOR_ENGINE): "sharded" is
+#: today's per-shard-lock path; "fused" is the device-resident
+#: coalescing pipeline (ingest/device_path.py) — a drop-in with the
+#: same alert semantics; "auto" resolves per backend at construction
+#: (fused on a CUDA device, sharded on the CPU — the crossover
+#: measurement in docs/ingest.md)
+DETECTOR_ENGINES = ("sharded", "fused", "auto")
 
 
 def default_detector_engine() -> str:
@@ -84,9 +176,25 @@ def default_detector_engine() -> str:
     return name or "sharded"
 
 
+class StreamCapacityError(Exception):
+    """All stream slots are held by active producers (→ HTTP 503:
+    retryable capacity condition, not a payload error)."""
+
+
+class _Stream:
+    def __init__(self) -> None:
+        self.decoder = TsvDecoder()
+        self.lock = named_lock("ingest.stream")
+        self.last_used = time.monotonic()
+
+
 class DetectorShard:
     """One independently-lockable partition of detector state: its own
-    CMS/k-means heavy-hitter detector and its own EWMA slot table."""
+    CMS/k-means heavy-hitter detector and its own EWMA slot table.
+    Keys are routed here by stable destination hash, so a given
+    destination's (and therefore connection's) whole history lives in
+    exactly one shard — per-key update order is preserved however many
+    shards run concurrently."""
 
     def __init__(self, index: int, heavy: HeavyHitterDetector,
                  streaming: StreamingDetector) -> None:
@@ -97,30 +205,48 @@ class DetectorShard:
 
 
 class IngestManager:
-    """Shard-parallel detector scoring over decoded flow batches.
+    """Shard-parallel ingest path: wire bytes → store ∥ detectors.
 
-    `db` is the flow store of the request half, which is not ported
-    yet: pass None. `device` (default "cuda") is where detector state
-    lives; without CUDA the constructor raises unless device="cpu".
-    """
+    Each producer is a *stream* (`?stream=<id>`, default "default")
+    with its own decoder, because a TFB2 block sequence carries
+    dictionary DELTAS relative to that producer's own stream — the
+    same discipline as one ClickHouse native-protocol connection. Any
+    payload type advances its stream's dictionaries, so keep block and
+    TSV producers on separate streams.
+
+    Failure/lifetime semantics (again mirroring a native-protocol
+    connection): a payload that fails to decode RESETS the stream (the
+    decoder is discarded — a partially-applied decode would otherwise
+    desync the dictionary chain for good) and the producer restarts
+    with a fresh encoder. When the stream table is full, only a stream
+    idle for > IDLE_EVICT_SECONDS is evicted to admit the new one;
+    with MAX_STREAMS active producers a new stream is refused with
+    StreamCapacityError (HTTP 503, retryable) rather than breaking an
+    active producer's delta chain. Decoded batches re-encode into the
+    store's dictionaries on insert (Table adoption), so streams never
+    need to know store state."""
+
+    #: streams idle longer than this may be evicted to admit new ones
+    IDLE_EVICT_SECONDS = 300.0
 
     #: string key columns remapped to ingest-global codes before
     #: scoring (both detectors key on them; see _remap_global)
     GLOBAL_COLUMNS = ("sourceIP", "destinationIP")
 
-    def __init__(self, db=None,
-                 detector: Optional[HeavyHitterDetector] = None,
+    def __init__(self, db, detector: Optional[HeavyHitterDetector] = None,
                  streaming: Optional[StreamingDetector] = None,
                  n_shards: Optional[int] = None,
+                 admission: Optional[AdmissionController] = None,
                  engine: Optional[str] = None,
                  streaming_capacity: Optional[int] = None,
                  device="cuda") -> None:
-        if db is not None:
-            raise ValueError("the flow store is not ported yet: "
-                             "IngestManager takes db=None")
+        self.db = db
         self.device = resolve_device(device)
+        self._streams: Dict[str, _Stream] = {}
+        self._registry_lock = named_lock("ingest.registry")
         # Injected detector instances pin the manager to ONE shard
-        # (there is a single state table to keep coherent).
+        # (there is a single state table to keep coherent); otherwise
+        # detector state shards n_shards ways.
         if detector is not None or streaming is not None:
             n_shards = 1
         elif n_shards is None:
@@ -139,18 +265,57 @@ class IngestManager:
         self.engine_name = engine
         _stream_kwargs = ({"capacity": int(streaming_capacity)}
                           if streaming_capacity else {})
+        # Working-set state tier (THEIA_STATE_TIER=1,
+        # ingest/state_tier.py): per-shard three-tier state stores —
+        # slot overflow spills LRU state to DRAM + the `detstate`
+        # result table (durable through WAL/snapshot/resync) instead
+        # of permanently dropping new series. Constructed only for
+        # manager-owned detectors; injected instances keep whatever
+        # tiering their creator chose.
+        self._tiers: List = []
+        _tiers: List = []
+        if detector is None and streaming is None:
+            from ..ingest import state_tier as _state_tier
+            if _state_tier.enabled():
+                cfg = _state_tier.TierConfig.from_env()
+                table = getattr(db, "result_tables", {}) or {}
+                table = table.get(_state_tier.DETSTATE_TABLE)
+                cold = _state_tier.SpillStore.recover_cold_indexes(
+                    table, self.n_shards, self.shard_of_destination)
+                spilled = sum(len(c) for c in cold)
+                if spilled:
+                    logger.info(
+                        "state tier recovered %d spilled series from "
+                        "the %s table", spilled,
+                        _state_tier.DETSTATE_TABLE)
+                _tiers = [
+                    _state_tier.WorkingSetTier(
+                        cfg,
+                        store=(_state_tier.SpillStore(table)
+                               if table is not None else None),
+                        key_resolver=self._resolve_keys,
+                        cold_index=cold[i])
+                    for i in range(self.n_shards)]
+                self._tiers = _tiers
         self.shards: List[DetectorShard] = [
             DetectorShard(i,
                           detector if detector is not None
                           else HeavyHitterDetector(device=self.device),
                           streaming if streaming is not None
-                          else StreamingDetector(device=self.device,
-                                                 **_stream_kwargs))
+                          else StreamingDetector(
+                              tier=_tiers[i] if _tiers else None,
+                              device=self.device, **_stream_kwargs))
             for i in range(self.n_shards)]
         # Last-published CMS total per shard: peers read these without
-        # taking the owner's lock (an eventually-consistent cluster
-        # total for heavy-hitter shares).
+        # taking the owner's lock, so heavy-hitter shares measure an
+        # eventually-consistent cluster total instead of serializing
+        # every shard on every batch.
         self._shard_totals = np.zeros(self.n_shards, np.float64)
+        # Fused engine: same DetectorShard state objects, scored by
+        # the coalescing single-dispatch pipeline instead of the
+        # per-shard-lock loop below. Imported lazily — the module
+        # pulls in the fused kernels, which a sharded-only manager
+        # never needs.
         self._fused = None
         if engine == "fused":
             from ..ingest.device_path import FusedDetectorEngine
@@ -158,15 +323,21 @@ class IngestManager:
                 self.shards, self._shard_totals,
                 on_scored=lambda n, stripe: _M_SCORED.inc(
                     n, stripe=stripe))
-        # The alert ring has its own cheap lock: reading alerts never
-        # waits behind scoring.
+        # The alert ring has its own cheap lock: GET /alerts never
+        # waits behind scoring or JIT compilation.
         self._alerts_lock = named_lock("ingest.alerts")
         self._alerts: Deque[Dict[str, object]] = collections.deque(
             maxlen=MAX_ALERTS)
-        # Detector keys must be stable across streams; stream-local
-        # dictionary codes are not, so the key columns re-encode
-        # against these ingest-global dictionaries before scoring,
-        # under their OWN lock.
+        self.rows_ingested = 0
+        # Detector keys must be stable across streams and stream
+        # resets; stream-local dictionary codes are neither, so the
+        # key columns re-encode against these ingest-global
+        # dictionaries before scoring (cached incremental mappings,
+        # schema.DictionaryMapper — no string objects on the hot
+        # path). Sized to survive reset churn across MAX_STREAMS
+        # producers. The remap has its OWN fine-grained lock so dict
+        # maintenance for one batch never blocks another batch's
+        # shard scoring.
         self._dict_lock = named_lock("ingest.dict")
         self._global_dicts: Dict[str, StringDictionary] = {
             c: StringDictionary() for c in self.GLOBAL_COLUMNS}
@@ -175,13 +346,650 @@ class IngestManager:
                                 max_entries=2 * MAX_STREAMS)
             for c in self.GLOBAL_COLUMNS}
         # destination global code → shard, extended lazily as codes
-        # are minted (each new destination string is hashed ONCE).
+        # are minted (each new destination string is hashed ONCE; the
+        # per-row partition is then a pure integer gather).
         self._dst_shard = np.zeros(1, np.int64)   # code 0: ""
+        # Pipelining pool for the store-insert leg (the groupsum MV
+        # fan-out releases the GIL, so it genuinely overlaps the
+        # detector leg's numpy/XLA work). Each in-flight request holds
+        # at most one insert, so size to request concurrency — host
+        # parallelism with headroom, capped at the stream slot count —
+        # NOT to the detector shard count, which is unrelated to
+        # insert parallelism.
+        self._insert_workers = min(MAX_STREAMS,
+                                   max(4, 2 * (os.cpu_count() or 1)))
+        self._insert_pool = ThreadPoolExecutor(
+            max_workers=self._insert_workers,
+            thread_name_prefix="theia-ingest-insert")
+        # In-flight store-insert legs, tracked so close() can drain
+        # them with a BOUND (ThreadPoolExecutor.shutdown(wait=True)
+        # has none, and one wedged insert must not hang SIGTERM
+        # forever past the WAL-fsync/final-checkpoint steps).
+        self._inflight_lock = named_lock("ingest.inflight")
+        self._inflight: set = set()
+        # -- overload-control plane (manager/admission.py) -----------
+        # Explicit backlog bound: the insert pool's queue used to grow
+        # without limit during a store stall; crossing the high
+        # watermark now drives the admission ladder to reject instead.
+        self.inflight_high = env_int("THEIA_INGEST_INFLIGHT_HIGH",
+                                     0) or 2 * self._insert_workers
+        if os.environ.get("THEIA_ADMISSION_DISABLED", "") == "1":
+            self.admission: Optional[AdmissionController] = None
+        else:
+            self.admission = (admission if admission is not None
+                              else AdmissionController())
+        if self.admission is not None:
+            self.admission.add_signal("insertBacklog",
+                                      self.inflight_count,
+                                      self.inflight_high)
+            self.admission.add_signal(
+                "walLag", self._wal_lag,
+                env_int("THEIA_WAL_LAG_HIGH", 50_000))
+            if self._fused is not None:
+                # Fused-pipeline backlog: a slow/wedged device step
+                # fills the bounded queue; crossing the watermark
+                # walks the brownout ladder (sampled scoring → shed
+                # detector → reject) instead of stacking requests
+                # behind an invisible device stall.
+                self.admission.add_signal(
+                    "fusedQueue", self._fused.queue_depth,
+                    env_int("THEIA_FUSED_QUEUE_HIGH", 0)
+                    or self._fused.queue_capacity)
+            if self._tiers:
+                # Spill-tier occupancy as overload pressure: a spilled
+                # series costs DRAM + a promote on re-arrival, so an
+                # unbounded working set walks the brownout ladder
+                # before it walks the host into swap.
+                self.admission.add_signal(
+                    "stateSpill",
+                    lambda: sum(t.spilled_count for t in self._tiers),
+                    env_int("THEIA_STATE_SPILL_HIGH", 1_000_000))
+        # -- cluster tier hooks (theia_tpu/cluster wires these) ------
+        # Router: split decoded batches by owner node, forward remote
+        # slices (role `peer` routing mesh).
+        self.router = None
+        # Durability gate: called after the local insert leg, before
+        # the acknowledgement — the replication leader blocks here
+        # until the configured follower ack quorum holds the batch
+        # (raises ReplicationLagError → HTTP 503).
+        self.durability_gate: Optional[Callable[[], None]] = None
+        # Exactly-once retried ingest: (stream, seq)-stamped batches
+        # dedup against this window; recovery re-seeds it from the
+        # tags the WAL replay surfaced, so the idempotency contract
+        # survives kill -9.
+        self.dedup = DedupWindow()
+        # (stream, seq) batches currently IN FLIGHT: a retry racing
+        # its still-processing original (client timeout shorter than a
+        # stalled insert — the overload case) must not decode+insert a
+        # second copy, and must not re-apply the block's dictionary
+        # delta; it is answered 429 and finds duplicate:true once the
+        # original acks.
+        self._pending_lock = named_lock("ingest.pending")
+        self._pending: set = set()
+        # Decoded-but-unacknowledged batches parked by a post-decode
+        # failure (replication-quorum timeout, forwarded-slice
+        # failure, insert error): the DECODE already advanced the
+        # stream's dictionary-delta chain, so the producer's mandated
+        # same-bytes retry must NOT decode again (the delta base no
+        # longer matches — "dictionary desync") — it replays the
+        # parked decoded batch instead. One entry per stream (a
+        # producer retries its failed block before sending the next),
+        # bounded, cleared on success.
+        self._parked_lock = named_lock("ingest.parked")
+        self._parked: "collections.OrderedDict[str, Tuple[int, ColumnarBatch]]" = (
+            collections.OrderedDict())
+        recovered = getattr(db, "recovered_acks", None)
+        if callable(recovered):
+            n_seeded = 0
+            for ack_stream, ack_seq, ack_rows, ack_total \
+                    in recovered():
+                if ack_total is not None and ack_rows < ack_total:
+                    # A sharded batch's slices fsync independently
+                    # under interval sync: part of this acked batch
+                    # was not durable at the crash. Seeding anyway is
+                    # the lesser evil — NOT seeding would make the
+                    # producer's retry duplicate every recovered row —
+                    # but the shortfall must be loud, and it is
+                    # bounded by the WAL sync policy's documented loss
+                    # window (THEIA_WAL_SYNC=always closes it).
+                    logger.error(
+                        "recovered ack (stream=%r seq=%d) is PARTIAL:"
+                        " %d of %d rows were durable at the crash; "
+                        "the missing rows are within the WAL sync-"
+                        "policy loss bound and a retry will be "
+                        "answered duplicate:true", ack_stream,
+                        ack_seq, ack_rows, ack_total)
+                self.dedup.record(ack_stream, ack_seq, ack_rows)
+                n_seeded += 1
+            if n_seeded:
+                logger.info(
+                    "dedup window seeded with %d acknowledged "
+                    "batches recovered from the WAL", n_seeded)
 
-    def close(self) -> None:
-        """Stop the fused scorer, if any (idempotent)."""
+    def _submit_insert(self, fn, *args):
+        fut = self._insert_pool.submit(fn, *args)
+        with self._inflight_lock:
+            self._inflight.add(fut)
+        fut.add_done_callback(self._discard_inflight)
+        return fut
+
+    def _discard_inflight(self, fut) -> None:
+        with self._inflight_lock:
+            self._inflight.discard(fut)
+
+    def inflight_count(self) -> int:
+        """Store-insert legs submitted but not finished — the insert
+        backlog the admission plane watches against `inflight_high`."""
+        with self._inflight_lock:
+            return len(self._inflight)
+
+    def _wal_lag(self) -> int:
+        fn = getattr(self.db, "wal_lag", None)
+        try:
+            return int(fn()) if callable(fn) else 0
+        except Exception:
+            return 0
+
+    def close(self, drain: bool = True,
+              drain_timeout: float = 60.0) -> None:
+        """Release the pipelining pool's threads (idempotent). By
+        default DRAINS queued/in-flight store-insert legs first —
+        those rows belong to acknowledged (or about-to-be-
+        acknowledged) requests, and the old shutdown(wait=False)
+        dropped them on SIGTERM, exactly the loss the durability
+        contract forbids — but with a bound: a wedged insert (hung
+        store, fault drill) must not stall shutdown past the WAL
+        fsync and final checkpoint. `drain=False` is for tests
+        tearing down a deliberately wedged pool."""
         if self._fused is not None:
+            # the fused scorer drains its queued steps and exits; done
+            # before the insert drain so in-flight requests' scoring
+            # legs resolve while their insert legs settle
             self._fused.close()
+        if drain:
+            import concurrent.futures as _cf
+            with self._inflight_lock:
+                pending = list(self._inflight)
+            if pending:
+                done, not_done = _cf.wait(pending,
+                                          timeout=drain_timeout)
+                if not_done:
+                    logger.error(
+                        "%d store-insert legs still running after "
+                        "%.0fs drain; abandoning them (their "
+                        "requests were never acknowledged)",
+                        len(not_done), drain_timeout)
+        self._insert_pool.shutdown(wait=False)
+
+    def _stream(self, stream_id: str) -> _Stream:
+        with self._registry_lock:
+            st = self._streams.get(stream_id)
+            if st is None:
+                if len(self._streams) >= MAX_STREAMS:
+                    # Only genuinely idle streams are evictable —
+                    # evicting an active producer would break its delta
+                    # chain on every block (reset thrash).
+                    now = time.monotonic()
+                    idle = [s for s, v in self._streams.items()
+                            if now - v.last_used > self.IDLE_EVICT_SECONDS]
+                    if not idle:
+                        raise StreamCapacityError(
+                            f"too many active ingest streams "
+                            f"(max {MAX_STREAMS})")
+                    victim = min(idle,
+                                 key=lambda s: self._streams[s].last_used)
+                    del self._streams[victim]
+                    logger.v(1).info("evicted idle ingest stream %r",
+                                     victim)
+                st = self._streams[stream_id] = _Stream()
+                logger.v(1).info("new ingest stream %r", stream_id)
+            st.last_used = time.monotonic()
+            return st
+
+    def _drop_stream(self, stream_id: str, st: _Stream) -> None:
+        with self._registry_lock:
+            if self._streams.get(stream_id) is st:
+                del self._streams[stream_id]
+
+    def ingest(self, payload: bytes, stream: str = "default",
+               seq: Optional[int] = None,
+               traceparent: Optional[str] = None
+               ) -> Dict[str, object]:
+        """Decode one wire payload, insert ∥ score. Raises ValueError on
+        malformed payloads (mapped to HTTP 400 by the API layer); the
+        failing stream is reset and must restart its encoder.
+
+        This is a trace INGRESS: a fresh trace context is minted (or
+        adopted from `traceparent` — a router forward carries its
+        origin's), every nested operation joins it, and the sampled
+        trace id rides back in the ack as `traceId` so `theia trace
+        <id>` can pull the stitched cross-node tree. An unsampled (or
+        THEIA_TRACE_SAMPLE=0) request records nothing and adds no
+        wire bytes.
+
+        `seq` is the producer's monotone batch sequence number within
+        its stream: a retry of an already-acknowledged (stream, seq) —
+        after a timeout, a 429, or a crash+recovery — is answered
+        `{"duplicate": true}` with the original row count, without
+        touching decoder, store, or detector state. The duplicate
+        check runs BEFORE admission: answering a retry is how the
+        producer learns its batch landed, so it must work even while
+        new work is being rejected. Raises AdmissionRejected (HTTP 429
+        + Retry-After) when the overload-control plane refuses the
+        batch; under the brownout ladder's degraded rungs the
+        detector/scoring leg is sampled or shed while rows stay
+        durable (WAL + store) and acknowledged."""
+        # THEIA_TRACE_SAMPLE_INGEST dials THIS ingress independently:
+        # ingest runs orders of magnitude hotter than queries or
+        # replication, and an un-dialed 1.0 rate would churn the
+        # bounded span ring in seconds at production batch rates
+        with _trace.ingress_span("ingest.request",
+                                 traceparent=traceparent,
+                                 sample_env="THEIA_TRACE_SAMPLE_INGEST",
+                                 stream=stream) as sp:
+            out = self._ingest_span_body(payload, stream, seq)
+            sp.attrs["rows"] = out.get("rows", 0)
+            if out.get("alerts"):
+                sp.attrs["alerts"] = out["alerts"]
+            if out.get("duplicate"):
+                sp.attrs["duplicate"] = True
+            ctx = _trace.current_context()
+            if ctx is not None:
+                out["traceId"] = ctx.trace_id
+            return out
+
+    def _ingest_span_body(self, payload: bytes, stream: str,
+                          seq: Optional[int]) -> Dict[str, object]:
+        t_req = time.perf_counter()
+        if seq is not None:
+            seq = int(seq)
+            dup_rows = self.dedup.lookup(stream, seq)
+            if dup_rows is None:
+                with self._pending_lock:
+                    if (stream, seq) in self._pending:
+                        # the original attempt is still running: a
+                        # second decode would double-insert AND
+                        # corrupt the stream's dictionary-delta chain
+                        # — tell the producer to come back for its
+                        # duplicate ack
+                        if self.admission is not None:
+                            # keep /healthz admission.rejected in
+                            # lockstep with the metric
+                            self.admission.note_rejected()
+                        _admission._M_REJECTED.labels(
+                            reason="in_flight").inc()
+                        raise _admission.AdmissionRejected(
+                            "in_flight", 0.25,
+                            f"(stream={stream!r}, seq={seq}) is "
+                            f"still being processed")
+                    # Re-check under the lock: the original may have
+                    # COMPLETED between the lock-free lookup above and
+                    # here (it records its ack strictly before it
+                    # drops its reservation, so a second miss now is
+                    # authoritative — no completed-and-acked original
+                    # exists).
+                    dup_rows = self.dedup.lookup(stream, seq)
+                    if dup_rows is None:
+                        self._pending.add((stream, seq))
+            if dup_rows is not None:
+                _admission._M_DEDUP_HITS.inc()
+                _admission._M_DUP_ROWS.inc(dup_rows)
+                logger.v(1).info(
+                    "duplicate batch (stream=%r seq=%d, %d rows) "
+                    "acked idempotently", stream, seq, dup_rows)
+                return {"rows": dup_rows, "alerts": 0,
+                        "duplicate": True}
+        try:
+            return self._ingest_admitted(payload, stream, seq, t_req)
+        finally:
+            if seq is not None:
+                with self._pending_lock:
+                    self._pending.discard((stream, seq))
+
+    def _ingest_admitted(self, payload: bytes, stream: str,
+                         seq: Optional[int],
+                         t_req: float) -> Dict[str, object]:
+        magic = payload[:4]
+        is_record = magic == RECORD_MAGIC
+        is_block = magic == _wire.BLOCK_MAGIC
+        rows_hint: Optional[int] = None
+        if is_block:
+            # TBLK: the block header names the exact row count, and
+            # `peek_counts` validates it against the payload size — so
+            # admission charges BOTH bytes and rows up front, without
+            # decoding a single column. A malformed header rejects
+            # here (→ 400) before it can touch any bucket.
+            try:
+                rows_hint, _ = _wire.peek_counts(payload, 4)
+            except _wire.WireCorruption:
+                _M_ERRORS.labels(stage="decode").inc()
+                raise
+        level = LEVEL_OK
+        if self.admission is not None:
+            # raises AdmissionRejected → 429 + Retry-After (payload
+            # bytes are charged here; rows after decode — except TBLK,
+            # whose header already charged them via rows_hint). The
+            # kwarg is passed only when a hint exists, so admit()
+            # stubs/wrappers with the pre-TBLK two-arg signature keep
+            # working for non-TBLK payloads.
+            if rows_hint is None:
+                level = self.admission.admit(stream, len(payload))
+            else:
+                level = self.admission.admit(stream, len(payload),
+                                             rows_hint=rows_hint)
+        parked = None
+        if seq is not None and not is_record and not is_block:
+            with self._parked_lock:
+                pk = self._parked.get(stream)
+                if pk is not None and pk[0] == seq:
+                    parked = pk[1]
+        wire_mv: Optional[memoryview] = None
+        pre_routed: Optional[List[Tuple[str, bytes, int]]] = None
+        if parked is not None:
+            # this block already decoded once (its failed attempt
+            # advanced the stream's delta chain and charged the row
+            # bucket) — replay the decoded form, don't decode again
+            batch = parked
+        elif is_record:
+            # Self-contained WAL-record payload (a router forward or a
+            # demoted leader's tail re-ingest): decodes statelessly —
+            # no stream slot, no dictionary-delta chain, and NEVER
+            # re-routed (its origin already placed it).
+            t_dec = time.perf_counter()
+            try:
+                from ..store.wal import (decode_record_body,
+                                         split_dedup_tag)
+                table, batch = decode_record_body(payload[4:])
+                # a tail re-ingest ships the original (tagged) record
+                # verbatim; identity comes from the query params, the
+                # embedded tag is informational
+                table, _tag = split_dedup_tag(table)
+                if table != "flows":
+                    raise ValueError(
+                        f"TREC payload targets table {table!r}")
+            except ValueError:
+                _M_ERRORS.labels(stage="decode").inc()
+                raise
+            except Exception as e:
+                _M_ERRORS.labels(stage="decode").inc()
+                raise ValueError(f"undecodable TREC payload: {e}")
+            _M_STAGE_DECODE.observe(time.perf_counter() - t_dec)
+        elif is_block:
+            # Self-contained TBLK block (the TFB3 producer format):
+            # stateless decode — no stream slot, no dictionary-delta
+            # chain, and no parked-batch bookkeeping (a retry simply
+            # decodes the identical bytes again). The received column
+            # section (`wire_mv`) rides on to the WAL so the journal
+            # writes the producer's bytes VERBATIM instead of
+            # re-encoding the adopted batch.
+            t_dec = time.perf_counter()
+            try:
+                wire_mv = memoryview(payload)[4:]
+                fwd = (self.router.split_wire(wire_mv)
+                       if self.router is not None else None)
+                if fwd is not None:
+                    # cross-node split on the ENCODED bytes: only
+                    # destinationIP was decoded to compute owners,
+                    # remote slices left as column-gathered TREC
+                    # payloads, and only the LOCAL slice is decoded
+                    # in full here
+                    local_wire, pre_routed = fwd
+                    wire_mv = memoryview(local_wire)
+                    batch, _end = _wire.decode_columns(wire_mv)
+                else:
+                    batch = _wire.decode_block(payload)
+            except ValueError:
+                _M_ERRORS.labels(stage="decode").inc()
+                raise
+            _M_STAGE_DECODE.observe(time.perf_counter() - t_dec)
+        else:
+            st = self._stream(stream)
+            # The stream lock guards only the DECODE (the dictionary-
+            # delta chain is per-stream state); the store insert runs
+            # outside it, so one producer's slow insert (TTL scan, MV
+            # fan-out) never blocks its next block's decode on another
+            # thread, and different streams insert fully concurrently.
+            # Store-visible order across racing blocks of one stream
+            # is not defined — the store orders by timeInserted, not
+            # arrival, exactly like concurrent INSERTs on one
+            # ClickHouse connection pool. The same holds for the
+            # DETECTOR leg: streaming state (CMS counts, EWMA
+            # recurrences) is order-sensitive, so a producer that
+            # pipelines blocks of one stream concurrently gets
+            # nondeterministic alert output for the racing blocks; a
+            # producer that needs reproducible alerting must await
+            # each response before sending the next block.
+            with st.lock:
+                t_dec = time.perf_counter()
+                try:
+                    if payload[:4] in (BLOCK_MAGIC, BLOCK_MAGIC_V1):
+                        batch = st.decoder.decode_block(payload)
+                    else:
+                        batch = st.decoder.decode(payload)
+                except Exception:
+                    # A failed decode may have partially advanced the
+                    # dictionaries (TSV minting is not transactional)
+                    # — discard the stream rather than serve a
+                    # desynced one.
+                    self._drop_stream(stream, st)
+                    _M_ERRORS.labels(stage="decode").inc()
+                    raise
+                _M_STAGE_DECODE.observe(time.perf_counter() - t_dec)
+        if parked is None and not is_block \
+                and self.admission is not None:
+            # post-decode row accounting: the row bucket may go into
+            # debt, which rejects FUTURE requests until it refills
+            # (TBLK already charged its exact count from the header)
+            self.admission.charge_rows(stream, len(batch))
+        try:
+            out = self._apply_decoded(batch, stream, seq, level,
+                                      t_req, is_record, wire=wire_mv,
+                                      pre_routed=pre_routed)
+        except Exception:
+            if seq is not None and not is_record and not is_block:
+                # the stream's delta chain is already advanced past
+                # this block: hold its decoded form for the retry
+                self._park(stream, seq, batch)
+            raise
+        if seq is not None and not is_record and not is_block:
+            self._unpark(stream, seq)
+        return out
+
+    #: parked decoded batches are capped (failure-path state only;
+    #: entries clear the moment a retry succeeds)
+    MAX_PARKED = 4 * MAX_STREAMS
+
+    def _park(self, stream: str, seq: int, batch: ColumnarBatch) -> None:
+        with self._parked_lock:
+            self._parked[stream] = (int(seq), batch)
+            self._parked.move_to_end(stream)
+            while len(self._parked) > self.MAX_PARKED:
+                self._parked.popitem(last=False)
+
+    def _unpark(self, stream: str, seq: int) -> None:
+        with self._parked_lock:
+            pk = self._parked.get(stream)
+            if pk is not None and pk[0] == int(seq):
+                del self._parked[stream]
+
+    def _apply_decoded(self, batch: ColumnarBatch, stream: str,
+                       seq: Optional[int], level: int, t_req: float,
+                       is_record: bool,
+                       wire: Optional[memoryview] = None,
+                       pre_routed: Optional[List] = None
+                       ) -> Dict[str, object]:
+        """Everything after a successful decode: routing, the
+        pipelined insert ∥ score legs, the replication durability
+        gate, dedup acks, and the response. Split out so a failure
+        anywhere in here can park the decoded batch for the retry.
+
+        `wire` is the received TBLK column section covering exactly
+        `batch`'s rows (already gathered down to the local slice when
+        routed) — threaded to the store so the WAL journals it
+        verbatim. `pre_routed` carries `split_wire`'s already-gathered
+        remote slices; the TFB2/TSV path routes here instead, on the
+        decoded batch."""
+        # -- cluster routing: keep owned rows, forward the rest --------
+        # (before the pipelined legs: forwards overlap the local
+        # insert/score work; owners admit/score/dedup their slices
+        # themselves). A retry re-splits identically — the hash is a
+        # pure function of the rows — so owners answer duplicate:true
+        # and the local slice dedups under its origin sub-stream.
+        routed = None
+        eff_stream = stream
+        local_dup: Optional[int] = None
+        if pre_routed is not None:
+            routed = self.router.forward_all_wire(pre_routed, stream,
+                                                  seq)
+            if seq is not None:
+                eff_stream = self.router.sub_stream(stream)
+                local_dup = self.dedup.lookup(eff_stream, seq)
+        elif self.router is not None and not is_record \
+                and wire is None:
+            local_batch, remote = self.router.split(batch)
+            if remote:
+                routed = self.router.forward_all(remote, stream, seq)
+                batch = local_batch
+                if seq is not None:
+                    eff_stream = self.router.sub_stream(stream)
+                    local_dup = self.dedup.lookup(eff_stream, seq)
+        # Pipelined legs: the store insert (MV fan-out, TTL) and the
+        # detector scoring are independent consumers of the decoded
+        # batch (both read-only), so they run overlapped and the
+        # request completes in max(legs), not their sum. Consequence
+        # for a FAILED insert: scoring has already advanced detector
+        # sketch state (that can't be rolled back), so a producer
+        # retrying the 5xx'd payload counts those rows twice in the
+        # detectors — at-least-once detector semantics, where the
+        # pre-pipelined path skipped scoring on insert failure (a
+        # seq-stamped producer avoids the double count entirely: the
+        # retry of an acked batch never reaches the detectors). The
+        # batch's alerts are still withheld (published only after the
+        # insert leg succeeds, below), and the store itself stays
+        # exactly-once.
+        # the tag carries the LOGICAL batch size so a sharded store's
+        # per-slice WAL records can reconstruct (and sanity-check) the
+        # whole ack at recovery; a routed batch tags its LOCAL slice
+        # under the origin sub-stream (the owners tag their own)
+        dedup_tag = ((eff_stream, seq, len(batch))
+                     if seq is not None else None)
+        skip_local = local_dup is not None or len(batch) == 0
+        fut = None
+        if not skip_local:
+            fut = self._submit_insert(self._timed_insert, batch,
+                                      dedup_tag, wire)
+        # Brownout: under pressure the scoring leg degrades first —
+        # sampled at a declining fraction, then fully shed — while the
+        # durable leg (WAL + store) keeps acknowledging rows.
+        scored = (level == LEVEL_OK
+                  or (self.admission is not None
+                      and self.admission.should_score(level)))
+        if skip_local:
+            # local slice already landed (a routed retry) or every row
+            # belongs to a remote owner — nothing to insert or score
+            alerts, conn_alerts, n_conn = [], [], 0
+        elif scored:
+            try:
+                t_det = time.perf_counter()
+                alerts, conn_alerts, n_conn = self.score_batch(batch)
+                _M_STAGE_DET.observe(time.perf_counter() - t_det)
+            except Exception:
+                _M_ERRORS.labels(stage="detector").inc()
+                # await the insert leg even when scoring raised: an
+                # unawaited future would hide the store's exception
+                # and break acked-rows conservation. If the insert
+                # SUCCEEDED, the rows (and their WAL tag) are durable
+                # even though this request will 500 — record the ack
+                # NOW so the producer's retry is answered
+                # duplicate:true instead of double-inserting (and
+                # desyncing its delta chain), exactly as a
+                # crash+replay of the same record would behave.
+                if fut.exception() is None and seq is not None:
+                    self.dedup.record(eff_stream, seq, fut.result())
+                raise
+        else:
+            alerts, conn_alerts, n_conn = [], [], 0
+            _M_SHED_ROWS.labels(mode=LEVEL_NAMES[level]).inc(
+                len(batch))
+        if fut is not None:
+            insert_exc = fut.exception()
+            if insert_exc is not None:
+                _M_ERRORS.labels(stage="store_insert").inc()
+                raise insert_exc
+            n = fut.result()
+        else:
+            n = local_dup or 0
+        if seq is not None and routed is not None and fut is not None:
+            # the local slice is durable: a retry of this batch must
+            # not re-insert it even though the whole-batch ack below
+            # is still pending on the forwards
+            self.dedup.record(eff_stream, seq, n)
+        remote_rows = 0
+        if routed is not None:
+            # owners ack (or answer duplicate:true for) their slices;
+            # a slice that exhausts its retry budget raises
+            # RouterForwardError → HTTP 503 → the producer retries the
+            # whole batch idempotently
+            remote_rows, _dups = self.router.await_all(routed)
+        if self.durability_gate is not None and not skip_local:
+            # replication quorum: block the acknowledgement until the
+            # configured follower quorum holds the local WAL append
+            # (raises ReplicationLagError → HTTP 503, retry-safe)
+            self.durability_gate()
+        total = n + remote_rows
+        if seq is not None:
+            # the ack is now durable to the WAL's policy bound (and
+            # the quorum's, when configured); a retry of this
+            # (stream, seq) is idempotent from here on
+            self.dedup.record(stream, seq, total)
+        now = time.time()
+        n_alerts = len(alerts) + n_conn
+        with self._alerts_lock:
+            for a in alerts:
+                self._alerts.appendleft(
+                    {**dataclasses.asdict(a), "time": now})
+            for d in conn_alerts:
+                self._alerts.appendleft({**d, "time": now})
+            self.rows_ingested += n
+        _M_BATCHES.inc()
+        _M_ROWS.inc(n)
+        if alerts:
+            _M_ALERTS.labels(kind="heavy_hitter").inc(len(alerts))
+        if n_conn:
+            _M_ALERTS.labels(kind="connection_anomaly").inc(n_conn)
+        dt_req = time.perf_counter() - t_req
+        _M_REQUEST.observe(dt_req)
+        # the enclosing ingress span (ingest()) is the flight record
+        # now — sampled requests publish with trace context attached;
+        # tune THEIA_TRACE_SAMPLE down instead of a slow-only filter
+        if n_alerts:
+            logger.v(1).info("ingested %d rows, %d alerts", n, n_alerts)
+        out: Dict[str, object] = {"rows": total, "alerts": n_alerts}
+        if remote_rows:
+            # rows this node forwarded to their owner-shard peers
+            # (scored and alert-ringed THERE, not here)
+            out["forwardedRows"] = remote_rows
+        if not scored:
+            # the producer sees its rows were stored but not scored —
+            # alert absence under brownout is degradation, not quiet
+            out["degraded"] = LEVEL_NAMES[level]
+        return out
+
+    def _timed_insert(self, batch: ColumnarBatch,
+                      dedup: Optional[Tuple[str, int]] = None,
+                      wire: Optional[memoryview] = None) -> int:
+        t0 = time.perf_counter()
+        try:
+            # kwargs are passed only when set, so minimal insert_flows
+            # signatures (test doubles, pre-wire stores) keep working
+            kwargs: Dict[str, object] = {}
+            if dedup is not None:
+                kwargs["dedup"] = dedup
+            if wire is not None:
+                kwargs["wire"] = wire
+            return self.db.insert_flows(batch, **kwargs)
+        finally:
+            _M_STAGE_STORE.observe(time.perf_counter() - t0)
 
     # -- detector leg ----------------------------------------------------
 
@@ -189,20 +997,29 @@ class IngestManager:
                     ) -> Tuple[List, List[Dict[str, object]], int]:
         """Advance every shard whose keys appear in `batch`; returns
         (heavy-hitter alerts, described connection alerts, raw
-        connection-alert count)."""
+        connection-alert count). Only the touched shard's lock is held
+        while its slice scores, and free shards are taken first (see
+        below), so requests whose keys land on different shards never
+        wait on each other."""
         if len(batch) == 0:
             return [], [], 0
         scored, shard_ids = self._remap_global(batch)
         if self._fused is not None:
+            # Fused engine: the remapped batch rides the coalescing
+            # device pipeline (ingest/device_path.py) — no shard
+            # locks, no per-shard slicing; per-shard order is the
+            # pipeline's enqueue order.
             return self._fused.score(scored, shard_ids)
         hh_alerts: List = []
         raw_alerts: List[Tuple[DetectorShard, ColumnarBatch, Dict]] = []
         n_conn = 0
         # Opportunistic acquisition: score whichever touched shard is
         # free NOW, blocking only when every remaining shard is busy.
-        # Slices of one batch hold disjoint key sets, so visit order
-        # across shards is free; per-connection order is enforced by
-        # the shard lock alone.
+        # A fixed index-order visit would convoy concurrent requests
+        # at shard 0 (every batch's keys usually span all shards);
+        # visit order across shards is free to vary because slices of
+        # one batch hold disjoint key sets — per-connection order is
+        # enforced by the shard lock alone.
         pending: Deque = collections.deque(
             self._partition(scored, shard_ids))
         while pending:
@@ -220,13 +1037,17 @@ class IngestManager:
                     _M_LOCK_MISS.inc()
                     pending.append((shard, part))
             if not progressed and pending:
+                # every remaining shard is busy — the convoy case the
+                # opportunistic pass exists to avoid
                 _M_LOCK_WAIT.inc()
                 shard, part = pending.popleft()
                 with shard.lock:
                     n_conn += self._score_shard(
                         shard, part, hh_alerts, raw_alerts)
-        # The ring keeps MAX_ALERTS; only the newest survive, so only
-        # those are decoded — outside any shard lock.
+        # The ring keeps MAX_ALERTS; in an alert storm only the newest
+        # survive, so only those are worth decoding — capped over the
+        # WHOLE batch, not per shard slice, and decoded outside any
+        # shard lock (describe_alert only reads the slice + dicts).
         conn_alerts: List[Dict[str, object]] = []
         for shard, part, a in raw_alerts[-MAX_ALERTS:]:
             described = shard.streaming.describe_alert(part, a)
@@ -241,8 +1062,15 @@ class IngestManager:
                      raw_alerts: List[Tuple["DetectorShard",
                                             ColumnarBatch, Dict]]) -> int:
         """Advance ONE shard with its slice (caller holds shard.lock);
-        appends heavy-hitter alerts and undecoded connection alerts,
-        returns the raw connection-alert count."""
+        appends heavy-hitter alerts and undecoded connection alerts
+        (decoding is the caller's, outside the lock), returns the raw
+        connection-alert count. The key columns already carry
+        ingest-global codes: detector state (CMS counts,
+        per-connection slots) persists across batches, so keys must
+        mean the same endpoint whichever stream (or stream generation)
+        produced the batch."""
+        # Striped, lock-free increment: this thread holds shard.lock,
+        # so it is the only writer of the shard's counter stripe.
         _M_SCORED.inc(len(part), stripe=shard.index)
         extra = float(self._shard_totals.sum()
                       - self._shard_totals[shard.index])
@@ -255,8 +1083,8 @@ class IngestManager:
     def _remap_global(self, batch: ColumnarBatch
                       ) -> Tuple[ColumnarBatch, Optional[np.ndarray]]:
         """Stream-local → ingest-global codes for the key columns, and
-        the per-row shard assignment. Only the dictionary lock is
-        held."""
+        the per-row shard assignment. Only the dictionary lock is held
+        — shard scoring proceeds concurrently."""
         with self._dict_lock:
             gcols = {c: self._mappers[c].remap(batch[c],
                                                batch.dicts[c])
@@ -274,9 +1102,11 @@ class IngestManager:
 
     def _dst_shard_table(self) -> np.ndarray:
         """code → shard for every destination code minted so far
-        (caller holds the dictionary lock). The hash is over the
-        string bytes, not the code, so the assignment is stable across
-        restarts and ingestion orders."""
+        (caller holds the dictionary lock). Each NEW destination
+        string is hashed once at mint time; rows then partition by a
+        pure integer gather. The hash is over the string bytes, not
+        the code, so the assignment is stable across restarts and
+        ingestion orders."""
         d = self._global_dicts["destinationIP"]
         have = len(self._dst_shard)
         if have < len(d):
@@ -287,17 +1117,33 @@ class IngestManager:
             self._dst_shard = np.concatenate([self._dst_shard, fresh])
         return self._dst_shard
 
+    def _resolve_keys(self, keys: np.ndarray) -> List[Tuple]:
+        """String-resolve [K, 6] ingest-global connection-key rows for
+        the state tier's restart-stable identity (keyHash + detstate
+        rows). Called under the shard lock / fused scorer thread with
+        K = keys being spilled or cold-probed, never per row. Takes
+        the dictionary lock only (same shard→dict edge as _remap's
+        callers; no reverse edge exists)."""
+        with self._dict_lock:
+            src_d = self._global_dicts["sourceIP"]
+            dst_d = self._global_dicts["destinationIP"]
+            return [(src_d.decode_one(int(k[0])), int(k[1]),
+                     dst_d.decode_one(int(k[2])), int(k[3]),
+                     int(k[4]), int(k[5])) for k in keys]
+
     def shard_of_destination(self, destination: str) -> int:
         """Stable shard assignment for a destination string (crc32 of
-        the UTF-8 bytes mod n_shards)."""
+        the UTF-8 bytes mod n_shards — identical across processes,
+        restarts, and ingestion orders)."""
         return zlib.crc32(
             destination.encode("utf-8", "surrogatepass")) % self.n_shards
 
     def _partition(self, scored: ColumnarBatch,
                    shard_ids: Optional[np.ndarray]):
         """Yield (shard, slice) for each shard with rows in `scored`,
-        in shard-index order; row order within a slice is batch
-        order."""
+        in shard-index order. Row order within a slice is batch order,
+        so each connection's points reach its shard's recurrence in
+        arrival order."""
         if shard_ids is None:
             yield self.shards[0], scored
             return
@@ -312,44 +1158,55 @@ class IngestManager:
 
     def detector_stats(self) -> Dict[str, object]:
         """Operator view of the sharded detector ensemble."""
-        return {
+        out = {
             "shards": self.n_shards,
             "series": [s.streaming.n_series for s in self.shards],
             "droppedSeries": [s.streaming.dropped_series
                               for s in self.shards],
             "totalVolume": float(self._shard_totals.sum()),
         }
+        if self._tiers:
+            out["stateTier"] = [t.stats() for t in self._tiers]
+        return out
 
     def shard_liveness(self) -> Dict[str, object]:
-        """Per-shard series occupancy plus a non-blocking lock probe
-        (`busy`: a request held the shard's lock at sample time), and
-        the engine's own stats."""
+        """Health-surface view of the detector shards: per-shard series
+        occupancy plus a non-blocking lock probe (`busy` — True means a
+        request held the shard's lock at sample time; a shard that is
+        busy on EVERY probe is wedged)."""
         per_shard = []
         for s in self.shards:
             acquired = s.lock.acquire(blocking=False)
             if acquired:
                 s.lock.release()
-            per_shard.append({
+            row = {
                 "shard": s.index,
                 "busy": not acquired,
                 "series": int(s.streaming.n_series),
                 "capacity": int(s.streaming.capacity),
                 "droppedSeries": int(s.streaming.dropped_series),
-            })
+            }
+            if s.streaming.tier is not None:
+                row["stateTier"] = s.streaming.tier.stats()
+            per_shard.append(row)
         engine: Dict[str, object] = {"name": self.engine_name}
         if self.engine_requested != self.engine_name:
             # only informative when auto resolved the name
             engine["requested"] = self.engine_requested
+
         if self._fused is not None:
             engine.update(self._fused.stats())
         return {
             "shards": self.n_shards,
+            "streams": len(self._streams),
+            "rowsIngested": self.rows_ingested,
             "engine": engine,
             "perShard": per_shard,
         }
 
     def push_alert(self, alert: Dict[str, object]) -> None:
-        """Publish an alert onto the ring, stamped with the time."""
+        """Publish an externally produced alert (e.g. a completed
+        spatial job's noise flows) onto the ring."""
         with self._alerts_lock:
             self._alerts.appendleft({**alert, "time": time.time()})
 

@@ -1,0 +1,149 @@
+"""Store statistics — the ClickHouseStats API equivalent.
+
+Re-provides pkg/apiserver/utils/stats/clickhouse_stats.go:35-117, whose
+four canned queries read system.disks / system.tables / system.query_log
+/ system.stack_trace. Here the "shard" is the in-process store:
+
+  * diskInfos   — store bytes vs a configured capacity
+  * tableInfos  — rows/bytes/columns per table and materialized view
+  * insertRates — rows/s and bytes/s since the previous sample
+  * stackTraces — current Python thread stacks (the reference dumps
+                  ClickHouse thread stacks)
+
+String-typed values mirror the reference API (pkg/apis/stats/v1alpha1).
+
+Ports theia_tpu/manager/stats.py: `deviceInfo` reads the manager's
+torch device (`device=`) instead of jax.devices().
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+import time
+import traceback
+from typing import Dict, List
+
+import torch
+
+from ..store import FlowDatabase
+from ..analysis.lockdep import named_lock
+
+
+class StatsProvider:
+    def __init__(self, db: FlowDatabase,
+                 capacity_bytes: int = 8 << 30,
+                 shard: str = "0", device="cuda") -> None:
+        self.device = torch.device(device)
+        self.db = db
+        self.capacity_bytes = capacity_bytes
+        self.shard = shard
+        self._lock = named_lock("manager.stats")
+        self._last_sample = (time.time(), self._row_byte_totals())
+
+    def _row_byte_totals(self):
+        """CUMULATIVE inserted rows/bytes, not net table size: net size
+        made insert_rates under-report after any delete (a retention
+        trim of N rows masked the next N inserted rows — the rate
+        read 0 while ingest ran hot). The cumulative counters only
+        grow, so the delta between samples is exactly what arrived.
+        Falls back to net size for stores that predate the counters
+        (e.g. a bare Table stub in tests)."""
+        db = self.db
+        rows = getattr(db, "rows_inserted_total", None)
+        if rows is not None:
+            return int(rows), int(db.bytes_inserted_total)
+        return len(db.flows), db.flows.nbytes
+
+    def disk_infos(self) -> List[Dict[str, str]]:
+        used = self.db.flows.nbytes + sum(
+            t.nbytes for t in self.db.result_tables.values())
+        free = max(self.capacity_bytes - used, 0)
+        return [{
+            "shard": self.shard,
+            "name": "default",
+            "path": "memory://flows",
+            "freeSpace": str(free),
+            "totalSpace": str(self.capacity_bytes),
+            "usedPercentage": f"{used / self.capacity_bytes * 100:.2f}",
+        }]
+
+    def table_infos(self) -> List[Dict[str, str]]:
+        out = []
+        for table in (self.db.flows, *self.db.result_tables.values()):
+            out.append({
+                "shard": self.shard,
+                "database": "default",
+                "tableName": table.name,
+                "totalRows": str(len(table)),
+                "totalBytes": str(table.nbytes),
+                "totalCols": str(len(table.schema)),
+            })
+        for name, view in self.db.views.items():
+            batch = view.scan()
+            nbytes = sum(v.nbytes for v in batch.columns.values())
+            out.append({
+                "shard": self.shard,
+                "database": "default",
+                "tableName": name,
+                "totalRows": str(len(batch)),
+                "totalBytes": str(nbytes),
+                "totalCols": str(len(batch.columns)),
+            })
+        return out
+
+    def insert_rates(self) -> List[Dict[str, str]]:
+        now = time.time()
+        rows, nbytes = self._row_byte_totals()
+        with self._lock:
+            then, (prev_rows, prev_bytes) = self._last_sample
+            self._last_sample = (now, (rows, nbytes))
+        dt = max(now - then, 1e-9)
+        # Cumulative totals are monotone, so the max() guard only
+        # protects against a swapped-out db object, not deletes.
+        return [{
+            "shard": self.shard,
+            "rowsPerSec": str(int(max(rows - prev_rows, 0) / dt)),
+            "bytesPerSec": str(int(max(nbytes - prev_bytes, 0) / dt)),
+        }]
+
+    def stack_traces(self) -> List[Dict[str, str]]:
+        out = []
+        for tid, frame in sys._current_frames().items():
+            out.append({
+                "shard": self.shard,
+                "threadId": str(tid),
+                "trace": "".join(traceback.format_stack(frame, limit=12)),
+            })
+        return out
+
+    def device_infos(self) -> List[Dict[str, str]]:
+        """The manager's accelerator and its memory: the card's name,
+        total memory, what `mem_get_info` finds in use on it, and what
+        this process's allocator holds. Served as the `deviceInfo`
+        stats component; a manager on the CPU answers with the error
+        entry the reference gives when no backend is usable."""
+        dev = self.device
+        if dev.type != "cuda":
+            return [{"shard": self.shard,
+                     "error": f"no accelerator: the manager runs on {dev}"}]
+        try:
+            index = (dev.index if dev.index is not None
+                     else torch.cuda.current_device())
+            props = torch.cuda.get_device_properties(index)
+            free, total = torch.cuda.mem_get_info(index)
+            allocated = torch.cuda.memory_allocated(index)
+        except (RuntimeError, AssertionError) as e:
+            return [{"shard": self.shard, "error": str(e)}]
+        in_use = total - free
+        return [{
+            "shard": self.shard,
+            "deviceId": str(index),
+            "platform": "gpu",
+            "deviceKind": props.name,
+            "processIndex": "0",
+            "memoryBytesInUse": str(in_use),
+            "memoryBytesLimit": str(total),
+            "memoryUsedPercentage": f"{in_use / max(total, 1) * 100:.2f}",
+            "memoryBytesAllocated": str(allocated),
+        }]

@@ -1,0 +1,419 @@
+"""Self-scraped metrics history: the process Registry as stored time
+series (scrape-to-store), with cascaded downsampling retention.
+
+The reference's observability promise is dashboards over the COLUMN
+STORE: Grafana never scrapes live processes, it queries ClickHouse
+history (PAPER.md §1). `theia top` was the anti-pattern half of our
+plane — it diffs two live scrapes, so every question about the past
+("was ingest slow an hour ago?") was unanswerable. This module closes
+that loop with the ARIMA_PLUS discipline (analytics live INSIDE the
+store, arXiv:2510.24452): a supervised loop snapshots the process-wide
+Registry every `THEIA_METRICS_SCRAPE_INTERVAL` seconds and appends
+rows to the parts-backed `__metrics__` result table — counters as
+cumulative totals, histograms as bucket counts + sum + count, gauges
+as points — which the existing query plane (local engine, PR-10
+scatter-gather, EXPLAIN, slow capture) serves like any other table.
+
+**Downsampling tiers (the ROADMAP item-5 rollup prototype).** Raw 15s
+points age into 1m rows after `THEIA_METRICS_ROLLUP_1M_SECONDS` and
+1m rows into 1h rows after `THEIA_METRICS_ROLLUP_1H_SECONDS`, by
+PART SURGERY: eligible sealed parts are decoded, folded per
+(metric, labels, node, kind, time-bucket), and atomically swapped for
+one rollup part — readers see either the raw parts or the rollup,
+never neither. The fold is EXACT for the mergeable aggregate columns
+(valueMin/Max/Sum/Count fold as min/max/sum/sum; `value` keeps the
+bucket's last sample, which for cumulative counters is the exact
+bucket-end total), so windowed min/max/sum/count/mean queries are
+bit-identical whether they scan raw points or rollup parts. Rollup
+writes bypass the WAL deliberately: the raw scrape inserts are
+journaled, so crash recovery replays raw rows and the next
+maintenance pass re-derives the same rollups — journaling both would
+double-count the window on replay.
+
+**Retention.** Rows older than `THEIA_METRICS_RETENTION_SECONDS` are
+deleted each tick (a short, dedicated horizon — metrics history is an
+operational ring, not flow data).
+
+**Cluster behavior.** Every node scrapes ITSELF and stamps its `node`
+column, so the PR-10 coordinator answers "p95 ingest latency per
+node, last 6h" from any routing-mesh node. On a leader/follower
+topology only write-accepting nodes insert (a follower's WAL is a
+byte-identical continuation of the leader's log — local writes would
+corrupt log matching); followers still run downsampling + retention,
+which are WAL-invisible and deterministic, so copies converge.
+
+Staleness contract: stored series are as-of the last scrape tick —
+up to one interval behind live `/metrics`; scrape-time gauges are
+refreshed through the same hook `GET /metrics` uses, so both
+surfaces agree at the tick.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..schema import (METRICS_SCHEMA, METRICS_TABLE,
+                      METRICS_VALUE_SCALE, ColumnarBatch)
+from ..utils.backoff import capped_backoff
+from ..utils.env import env_float, env_int
+from ..utils.logging import get_logger
+from . import metrics as _metrics
+
+logger = get_logger("obs.history")
+
+DEFAULT_SCRAPE_INTERVAL = 15.0
+DEFAULT_RETENTION_SECONDS = 86400
+#: raw points roll to 1m rows once older than this
+DEFAULT_ROLLUP_1M_SECONDS = 3600
+#: 1m rows roll to 1h rows once older than this
+DEFAULT_ROLLUP_1H_SECONDS = 21600
+#: the memtable force-seals once it spans this much time, so scrape
+#: rows become prunable sorted parts on a steady cadence
+SEAL_SPAN_SECONDS = 60
+
+#: (target resolution seconds, env knob, default age) — cascade order
+ROLLUP_TIERS = (
+    (60, "THEIA_METRICS_ROLLUP_1M_SECONDS", DEFAULT_ROLLUP_1M_SECONDS),
+    (3600, "THEIA_METRICS_ROLLUP_1H_SECONDS",
+     DEFAULT_ROLLUP_1H_SECONDS),
+)
+
+_M_ROWS = _metrics.counter(
+    "theia_metrics_history_rows_total",
+    "Series sample rows appended to the __metrics__ history table by "
+    "the scrape loop")
+_M_TICKS = _metrics.counter(
+    "theia_metrics_history_ticks_total",
+    "Metrics-history loop ticks, by outcome",
+    labelnames=("result",))
+_M_ROLLUPS = _metrics.counter(
+    "theia_metrics_history_rollups_total",
+    "Downsampling part-surgery passes that replaced raw/finer parts "
+    "with a coarser rollup part, by target resolution",
+    labelnames=("resolution",))
+_M_EXPIRED = _metrics.counter(
+    "theia_metrics_history_rows_expired_total",
+    "History rows deleted by THEIA_METRICS_RETENTION_SECONDS")
+
+
+def scrape_interval() -> float:
+    """THEIA_METRICS_SCRAPE_INTERVAL (seconds; <= 0 disables)."""
+    return env_float("THEIA_METRICS_SCRAPE_INTERVAL",
+                     DEFAULT_SCRAPE_INTERVAL)
+
+
+def _label_string(labelnames: Tuple[str, ...],
+                  labelvalues: Tuple[str, ...],
+                  extra: Optional[Tuple[str, str]] = None) -> str:
+    pairs = list(zip(labelnames, labelvalues))
+    if extra is not None:
+        pairs.append(extra)
+    return ",".join(f"{k}={v}" for k, v in sorted(pairs))
+
+
+def _scale(value: float) -> int:
+    """Float sample → int64 micro-units (NaN — e.g. a gauge callback
+    that raised — is recorded as 0 rather than poisoning int math)."""
+    v = float(value)
+    if v != v or v in (float("inf"), float("-inf")):
+        return 0
+    return int(round(v * METRICS_VALUE_SCALE))
+
+
+def snapshot_registry_rows(now: int, node: str = "",
+                           registry: Optional[object] = None,
+                           resolution: Optional[int] = None
+                           ) -> List[Dict[str, object]]:
+    """One scrape: the registry's current state as `__metrics__` row
+    dicts (raw resolution). Counters/gauges yield one row per child;
+    histograms yield `_bucket` (cumulative, `le` in labels), `_sum`,
+    and `_count` series — exactly the exposition's series set, so a
+    stored query and a live scrape name the same things. `resolution`
+    is the CALLER's actual sampling cadence (the loop passes its
+    configured interval — re-reading the env here would stamp the
+    default on a loop constructed with a different one)."""
+    reg = registry if registry is not None else _metrics.REGISTRY
+    if resolution is not None:
+        res = max(1, int(round(resolution)))
+    else:
+        res = max(1, int(round(scrape_interval()))) \
+            if scrape_interval() > 0 else 1
+    rows: List[Dict[str, object]] = []
+
+    def add(metric: str, labels: str, kind: str, value: float) -> None:
+        v = _scale(value)
+        rows.append({
+            "timeInserted": int(now), "metric": metric,
+            "labels": labels, "node": node, "kind": kind,
+            "resolution": res, "value": v, "valueMin": v,
+            "valueMax": v, "valueSum": v, "valueCount": 1})
+
+    for metric in reg.collect():
+        for labelvalues, child in metric.children():
+            if metric.kind == "histogram":
+                cumulative, total, count = child.snapshot()
+                bounds = _metrics.bucket_bounds() + [float("inf")]
+                for bound, c in zip(bounds, cumulative):
+                    le = ("+Inf" if bound == float("inf")
+                          else repr(float(bound)))
+                    add(f"{metric.name}_bucket",
+                        _label_string(metric.labelnames, labelvalues,
+                                      extra=("le", le)),
+                        "bucket", float(c))
+                labels = _label_string(metric.labelnames, labelvalues)
+                add(f"{metric.name}_sum", labels, "sum", total)
+                add(f"{metric.name}_count", labels, "count",
+                    float(count))
+            else:
+                add(metric.name,
+                    _label_string(metric.labelnames, labelvalues),
+                    metric.kind, child.value())
+    return rows
+
+
+# -- table resolution ------------------------------------------------------
+
+def metrics_table(db):
+    """The `__metrics__` proxy/table of any store topology (inserts go
+    through it so replicated fan-out and WAL hooks apply)."""
+    return db.result_tables[METRICS_TABLE]
+
+
+def concrete_metrics_tables(db) -> List[object]:
+    """The physical `__metrics__` tables behind a topology — one per
+    shard × replica — for the maintenance passes (downsample/retention
+    run the same deterministic transform on every copy; a down replica
+    heals through the existing truncate+resync path). The replicated
+    proxy is unwrapped FIRST: `_ReplicatedTable.__getattr__` forwards
+    unknown attributes (including `tables`) to the ACTIVE replica, so
+    probing for the sharded shape first would silently maintain only
+    the active copy of a replicated-of-sharded store; recursing per
+    replica covers every nesting either way."""
+    rt = metrics_table(db)
+    rdb = getattr(rt, "_db", None)
+    if rdb is not None and hasattr(rdb, "replicas"):   # replicated
+        out: List[object] = []
+        for r in rdb.replicas:
+            out.extend(concrete_metrics_tables(r))
+        return out
+    if hasattr(rt, "tables"):           # sharded DistributedTable
+        return list(rt.tables)
+    return [rt]
+
+
+# -- downsampling (part surgery) -------------------------------------------
+
+#: the `__metrics__` fold shape: series identity keys, the exactly-
+#: mergeable aggregate columns, and the latest-sample `value` (exact
+#: bucket-end totals for cumulative counters)
+_FOLD_KEYS = ("metric", "labels", "node", "kind")
+_FOLD_MERGE = {"valueMin": "min", "valueMax": "max",
+               "valueSum": "sum", "valueCount": "sum"}
+
+
+def downsample_table(table, now: int,
+                     tiers: Sequence[Tuple[int, int]]) -> int:
+    """One cascade pass over one concrete PartTable, through the
+    SHARED part-surgery loop (query/rollup.py downsample_parts — the
+    same sealed-part selection + atomic replace_parts swap the
+    rollup-view tiers use). Returns parts replaced; a swap that loses
+    to a concurrent merge/demote aborts for this tier and the next
+    pass retries against fresh state."""
+    from ..query.rollup import downsample_parts, fold_rows_to_buckets
+
+    def fold(batch: ColumnarBatch, resolution: int):
+        return fold_rows_to_buckets(
+            batch, resolution, _FOLD_KEYS, _FOLD_MERGE,
+            time_column="timeInserted",
+            resolution_column="resolution",
+            last_columns=("value",))
+
+    per = downsample_parts(table, now, tiers, fold,
+                           time_column="timeInserted",
+                           resolution_column="resolution")
+    for resolution, replaced in per.items():
+        _M_ROLLUPS.labels(resolution=str(resolution)).inc()
+    return sum(per.values())
+
+
+class MetricsHistoryLoop:
+    """Supervised scrape-to-store driver (the RetentionLoop
+    discipline): every `THEIA_METRICS_SCRAPE_INTERVAL` seconds one
+    `run_once()` — scrape the registry into the `__metrics__` table,
+    force-seal a memtable spanning >= SEAL_SPAN_SECONDS, run the
+    downsample cascade, expire rows past the retention horizon. A
+    failed tick backs off with the shared schedule instead of
+    hammering a broken store; `run_once(now=...)` is injectable so
+    tests drive synthetic clocks synchronously."""
+
+    def __init__(self, db,
+                 interval: Optional[float] = None,
+                 node: Optional[str] = None,
+                 refresh: Optional[Callable[[], None]] = None,
+                 accepts_writes: Optional[Callable[[], bool]] = None,
+                 retention_seconds: Optional[int] = None,
+                 tiers: Optional[Sequence[Tuple[int, int]]] = None,
+                 rules: Optional[object] = None,
+                 backoff_cap: float = 300.0) -> None:
+        self.db = db
+        #: optional RulesEngine (obs/rules.py) evaluated once per
+        #: tick, AFTER scrape+maintain so rules see this tick's rows
+        self.rules = rules
+        self.interval = (scrape_interval() if interval is None
+                         else float(interval))
+        self._node = node
+        self.refresh = refresh
+        self.accepts_writes = accepts_writes
+        self.retention_seconds = (
+            env_int("THEIA_METRICS_RETENTION_SECONDS",
+                    DEFAULT_RETENTION_SECONDS)
+            if retention_seconds is None else int(retention_seconds))
+        self.tiers: Tuple[Tuple[int, int], ...] = tuple(
+            tiers if tiers is not None else
+            ((res, env_int(knob, default))
+             for res, knob, default in ROLLUP_TIERS))
+        self.backoff_cap = backoff_cap
+        self.ticks = 0
+        self.rows_recorded = 0
+        self.rows_expired = 0
+        self.parts_rolled_up = 0
+        self.failures = 0
+        self.consecutive_failures = 0
+        self.current_delay = self.interval
+        self._last_seal = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="theia-metrics-history")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=15)
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.current_delay):
+            self.run_once()
+
+    # -- one tick ----------------------------------------------------------
+
+    def node_id(self) -> str:
+        if self._node is not None:
+            return self._node
+        from . import trace as _trace
+        return _trace.node_id() or ""
+
+    def scrape(self, now: Optional[int] = None) -> int:
+        """Scrape the registry into the table (WAL-journaled insert);
+        returns rows appended. Skipped on nodes that must not take
+        local writes (a follower's WAL is the leader's log)."""
+        if self.accepts_writes is not None and \
+                not self.accepts_writes():
+            return 0
+        now = int(time.time()) if now is None else int(now)
+        if self.refresh is not None:
+            try:
+                self.refresh()
+            except Exception:
+                pass   # stale scrape-time gauges beat a lost tick
+        rows = snapshot_registry_rows(now, node=self.node_id(),
+                                      resolution=self.interval)
+        if not rows:
+            return 0
+        table = metrics_table(self.db)
+        # a facade without table-level dicts (the sharded
+        # DistributedTable routes to per-shard tables, each owning
+        # its own) takes a fresh-dict batch — Table.insert adopts
+        # foreign dictionaries on append
+        batch = ColumnarBatch.from_rows(rows, METRICS_SCHEMA,
+                                        getattr(table, "dicts", None))
+        table.insert(batch)
+        self.rows_recorded += len(rows)
+        _M_ROWS.inc(len(rows))
+        # force-seal on a time cadence so scrape rows become sorted,
+        # prunable parts (size-based sealing would hold ~an hour of
+        # samples in the memtable)
+        if now - self._last_seal >= SEAL_SPAN_SECONDS:
+            for t in concrete_metrics_tables(self.db):
+                seal = getattr(t, "seal", None)
+                if callable(seal):
+                    seal()
+            self._last_seal = now
+        return len(rows)
+
+    def maintain(self, now: Optional[int] = None) -> Dict[str, int]:
+        """Downsample cascade + retention over every concrete table."""
+        now = int(time.time()) if now is None else int(now)
+        rolled = 0
+        expired = 0
+        for t in concrete_metrics_tables(self.db):
+            rolled += downsample_table(t, now, self.tiers)
+            if self.retention_seconds > 0:
+                n = t.delete_older_than(now - self.retention_seconds)
+                expired += n
+        self.parts_rolled_up += rolled
+        self.rows_expired += expired
+        if expired:
+            _M_EXPIRED.inc(expired)
+        return {"partsRolledUp": rolled, "rowsExpired": expired}
+
+    def run_once(self, now: Optional[int] = None) -> int:
+        """One supervised tick; returns rows recorded (0 on failure)."""
+        try:
+            recorded = self.scrape(now)
+            self.maintain(now)
+        except Exception as e:
+            self.failures += 1
+            self.consecutive_failures += 1
+            self.current_delay = capped_backoff(
+                max(self.interval, 0.001) * 2, self.backoff_cap,
+                self.consecutive_failures)
+            _M_TICKS.labels(result="error").inc()
+            logger.error(
+                "metrics-history tick failed (%d consecutive): %s; "
+                "backing off %.1fs", self.consecutive_failures, e,
+                self.current_delay)
+            return 0
+        if self.consecutive_failures:
+            logger.info("metrics history recovered after %d failed "
+                        "ticks", self.consecutive_failures)
+        self.consecutive_failures = 0
+        self.current_delay = self.interval
+        self.ticks += 1
+        _M_TICKS.labels(result="ok").inc()
+        if self.rules is not None:
+            # rules ride the tick but fail independently: a broken
+            # rule set must not back the scrape loop off (the rules
+            # engine already counts per-rule evaluation errors)
+            try:
+                self.rules.evaluate(now)
+            except Exception as e:
+                logger.error("alert-rule evaluation failed: %s", e)
+        return recorded
+
+    def stats(self) -> Dict[str, object]:
+        """Operator doc (merged into GET /healthz as `metricsHistory`)."""
+        try:
+            rows = len(metrics_table(self.db))
+        except Exception:
+            rows = None
+        return {
+            "intervalSeconds": self.interval,
+            "retentionSeconds": self.retention_seconds,
+            "rollupTiers": [
+                {"resolutionSeconds": r, "afterSeconds": a}
+                for r, a in self.tiers],
+            "ticks": self.ticks,
+            "rowsRecorded": self.rows_recorded,
+            "rowsStored": rows,
+            "rowsExpired": self.rows_expired,
+            "partsRolledUp": self.parts_rolled_up,
+            "failures": self.failures,
+        }

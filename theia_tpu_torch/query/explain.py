@@ -1,0 +1,233 @@
+"""Query execution profiles (EXPLAIN) and the slow-query capture ring.
+
+The engine's prune/scan/cache/merge decisions were previously visible
+only as aggregate counters; this module makes them first-class per
+query:
+
+  * **QueryProfiler** — collected alongside a normal execution (never
+    a second run, so the profiled rows are bit-identical to the
+    unprofiled result): per-part scanned/pruned with the prune
+    *reason* (time window, numeric range, dictionary-code miss), rows
+    scanned vs matched, kernel used, cache disposition, and on a
+    cluster coordinator per-peer timings/bytes/degraded reasons plus
+    merge and top-K time. Attached to the result doc under
+    `"profile"` when the caller asked (`GET /query?...&explain=1`,
+    POST `"explain": true`).
+  * **SlowQueryLog** — any query slower than `THEIA_QUERY_SLOW_MS`
+    (default 1000 ms; <= 0 disables) is captured WITH its full
+    profile into a bounded ring (`THEIA_QUERY_SLOW_RING`, default 64)
+    served at `GET /debug/slow_queries` (token-gated — plans carry
+    flow identities). Because a slow query must be profiled before it
+    is known to be slow, profile collection runs whenever capture is
+    enabled; the collection cost is a few dict appends per PART,
+    invisible next to the scans that make a query slow.
+
+Profilers are cheap but not free, so `QueryProfiler.maybe(explain)`
+returns None when neither explain nor slow capture wants one — the
+engine threads `None` through and pays nothing.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import threading
+import time
+from typing import Deque, Dict, List, Optional
+
+from ..obs import metrics as _metrics
+from ..utils.env import env_int
+from ..analysis.lockdep import named_lock
+
+_M_SLOW = _metrics.counter(
+    "theia_query_slow_queries_total",
+    "Queries slower than THEIA_QUERY_SLOW_MS captured (with their "
+    "full execution profile) into the /debug/slow_queries ring")
+
+#: per-part detail entries kept per profile (a 10k-part scan still
+#: profiles — the list just truncates, with the drop counted)
+MAX_PROFILE_PARTS = 128
+
+
+def slow_threshold_ms() -> float:
+    """THEIA_QUERY_SLOW_MS (default 1000; <= 0 disables capture)."""
+    raw = os.environ.get("THEIA_QUERY_SLOW_MS", "")
+    try:
+        return float(raw) if raw else 1000.0
+    except ValueError:
+        return 1000.0
+
+
+class QueryProfiler:
+    """One query's execution profile, filled in by the engine as it
+    runs. Thread-safe where the engine is parallel (matched-row counts
+    come from the worker pool); the per-part prune/scan log is
+    appended on the planning thread only."""
+
+    def __init__(self, detail: bool = True) -> None:
+        #: detail=False (slow-capture-only) skips collection that
+        #: costs real work (e.g. the flat engine's extra mask pass);
+        #: cheap per-part bookkeeping is collected either way
+        self.detail = detail
+        self.parts: List[Dict[str, object]] = []
+        self.parts_truncated = 0
+        self.rows_matched = 0
+        self.memtable_rows = 0
+        self.phases: Dict[str, float] = {}
+        self.peers: List[Dict[str, object]] = []
+        self._lock = named_lock("query.profiler")
+
+    @staticmethod
+    def maybe(explain: bool) -> Optional["QueryProfiler"]:
+        """A profiler when someone will read it (explain requested, or
+        slow-query capture armed), else None — the engine's signal to
+        skip collection entirely."""
+        if explain or slow_threshold_ms() > 0:
+            return QueryProfiler(detail=explain)
+        return None
+
+    def add_part(self, uid: object, tier: str, rows: int,
+                 pruned: Optional[str] = None,
+                 granules: Optional[Dict[str, object]] = None,
+                 resolution=None) -> None:
+        """One part's fate: scanned, or pruned with the reason
+        (`time_window`, `range:<col>`, `codes:<col>`, or `granules`
+        when every index granule proved empty). `granules` carries the
+        intra-part skip-index story for a sorted part — {"scanned",
+        "skipped", "reasons": {"pk:<col>"|"skip_minmax:<col>"|
+        "skip_set:<col>": granule count}} — exactly as the engine
+        decided it (engine._granule_prune). `resolution` is the
+        part's (min, max) `resolution` metadata when the table tracks
+        one (`__metrics__`): a 6h window answered from downsampled
+        history shows rollup-tier parts (e.g. 3600) here, not raw
+        scrape points."""
+        if len(self.parts) >= MAX_PROFILE_PARTS:
+            self.parts_truncated += 1
+            return
+        entry: Dict[str, object] = {"part": uid, "tier": tier,
+                                    "rows": int(rows)}
+        if pruned is not None:
+            entry["pruned"] = pruned
+        else:
+            entry["scanned"] = True
+        if granules is not None:
+            entry["granules"] = granules
+        if resolution is not None:
+            lo, hi = int(resolution[0]), int(resolution[1])
+            entry["resolution"] = lo if lo == hi else [lo, hi]
+        self.parts.append(entry)
+
+    def add_matched(self, n: int) -> None:
+        """Rows surviving the filter mask (worker threads)."""
+        with self._lock:
+            self.rows_matched += int(n)
+
+    def phase(self, name: str, seconds: float) -> None:
+        self.phases[name] = self.phases.get(name, 0.0) + seconds
+
+    def add_peer(self, peer: str, status: str, **extra: object) -> None:
+        """Coordinator-side per-peer outcome: `queried` (with timing/
+        bytes/scan stats), `pruned`, `down`, or `failed` (with the
+        degraded reason)."""
+        self.peers.append({"peer": peer, "status": status, **extra})
+
+    def doc(self, **extra: object) -> Dict[str, object]:
+        out: Dict[str, object] = dict(extra)
+        if self.detail:
+            # matched counts are collected only under explicit
+            # explain (they cost an extra reduction per part)
+            out["rowsMatched"] = self.rows_matched
+        if self.memtable_rows:
+            out["memtableRows"] = self.memtable_rows
+        if self.parts:
+            out["parts"] = self.parts
+        if self.parts_truncated:
+            out["partsListTruncated"] = self.parts_truncated
+        if self.peers:
+            out["peers"] = sorted(self.peers,
+                                  key=lambda p: str(p.get("peer")))
+        if self.phases:
+            out["phases"] = {k: round(v * 1000, 3)
+                             for k, v in sorted(self.phases.items())}
+        return out
+
+
+class SlowQueryLog:
+    """Bounded, process-wide ring of slow-query captures (newest first
+    on read). Entries carry the plan, timing, scan stats, trace id,
+    and the full profile — NOT the result rows (the ring must stay
+    small and the rows add nothing to "why was it slow")."""
+
+    def __init__(self, capacity: Optional[int] = None) -> None:
+        cap = (env_int("THEIA_QUERY_SLOW_RING", 64)
+               if capacity is None else int(capacity))
+        self._ring: Deque[Dict[str, object]] = collections.deque(
+            maxlen=max(0, cap))
+        self._lock = named_lock("query.slowlog")
+        self.captured = 0
+
+    def capture(self, plan, doc: Dict[str, object],
+                profile: Dict[str, object]) -> None:
+        if not self._ring.maxlen:
+            return
+        entry: Dict[str, object] = {
+            "time": time.time(),
+            "tookMs": doc.get("tookMs"),
+            "engine": doc.get("engine"),
+            "plan": plan.to_doc(),
+            "groupCount": doc.get("groupCount"),
+            "rowsScanned": doc.get("rowsScanned"),
+            "partsScanned": doc.get("partsScanned"),
+            "partsPruned": doc.get("partsPruned"),
+            # the PR-12 granule skip-index story rides every capture:
+            # "slow despite skipping?" / "slow because nothing
+            # skipped?" is the first question a profile answers
+            "granulesScanned": doc.get("granulesScanned"),
+            "granulesSkipped": doc.get("granulesSkipped"),
+            "profile": profile,
+        }
+        if doc.get("traceId"):
+            entry["traceId"] = doc["traceId"]
+        if doc.get("partial"):
+            entry["partial"] = True
+        with self._lock:
+            self._ring.append(entry)
+            self.captured += 1
+        _M_SLOW.inc()
+
+    def observe(self, plan, doc: Dict[str, object],
+                profiler: Optional[QueryProfiler],
+                profile_doc: Optional[Dict[str, object]]) -> None:
+        """Capture `doc` iff it crossed the threshold and a profile was
+        collected (the engine's single call site per query)."""
+        threshold = slow_threshold_ms()
+        if threshold <= 0 or profiler is None:
+            return
+        took = float(doc.get("tookMs") or 0.0)
+        if took >= threshold:
+            self.capture(plan, doc, profile_doc or profiler.doc())
+
+    def snapshot(self) -> List[Dict[str, object]]:
+        with self._lock:
+            out = list(self._ring)
+        out.reverse()
+        return out
+
+    def doc(self) -> Dict[str, object]:
+        """The GET /debug/slow_queries payload."""
+        return {
+            "thresholdMs": slow_threshold_ms(),
+            "captured": self.captured,
+            "capacity": self._ring.maxlen,
+            "queries": self.snapshot(),
+        }
+
+    def reset(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self.captured = 0
+
+
+#: the process-wide slow-query ring every engine captures into (one
+#: manager process = one ring, exactly like the trace ring)
+SLOW_QUERIES = SlowQueryLog()

@@ -1,0 +1,1619 @@
+"""Streaming materialized rollup views — incremental aggregate parts
+with a transparent planner rewrite.
+
+The reference maintains three ClickHouse SummingMergeTree materialized
+views precisely so Grafana never scans raw flows (create_table.sh:
+92-351); our PR-7 port of those views (`store/views.py` ViewTable) is
+an in-memory side table invisible to the `/query` plane, so a
+month-window dashboard group-by still streams every cold part through
+the decode buffer on each cache miss. This module is the ROADMAP
+item-5 arc: declarative rollup views whose definition IS a normalized
+QueryPlan shape, maintained incrementally as first-class aggregate
+parts, and a planner rewrite that answers subsumed windowed plans from
+the coarsest rollup tier with raw-scan edges stitched bit-identically.
+
+Three cooperating pieces:
+
+  * **Declaration** (`RollupView`, `THEIA_ROLLUP_VIEWS`): a view is a
+    groupBy column list + lowered count/sum/min/max aggregates (mean
+    lowers to sum+count exactly like the query plane) + optional
+    AND-ed filters + a base time bucket over `timeInserted` + an
+    optional cascade of coarser tiers (each resolution a multiple of
+    the previous — the divisibility chain is what makes window
+    alignment provable). The JSON file hot-reloads on mtime change
+    with the THEIA_ALERT_RULES discipline: a torn/malformed file keeps
+    the previous set evaluating and surfaces `loadError`. The
+    reference's pod/node/policy views ship as built-in defaults
+    (`THEIA_ROLLUP_DEFAULTS=1`).
+  * **Maintenance** (`RollupManager`, one per physical FlowDatabase):
+    every flows insert block folds through each view (hash-run
+    grouping, the `group_sum_fast` trick generalized to mixed
+    count/sum/min/max — partial rows may split on a hash collision,
+    which is exactly SummingMergeTree part semantics: the read path
+    re-merges exactly) and appends to a parts-backed
+    `__rollup__:<view>` table sorted by (bucketStart, group key) with
+    `resolution` in the per-part min/max, so rollup reads prune like
+    `__metrics__` history does. Rollup writes are deliberately
+    WAL-INVISIBLE (the PR-13 contract): raw flow inserts are
+    journaled, recovery replays them through the same insert path and
+    re-derives identical rollups — journaling both would double-count
+    the window on replay. Parts-aware snapshots persist the aggregate
+    state (stamped with the view definition, so a definition change
+    rebuilds instead of restoring a stale shape); cluster replication
+    ships flows frames and each copy re-derives deterministically;
+    resync truncates and rebuilds through `insert_flows`. Cascaded
+    downsampling folds aged parts 1m→1h by the PR-13 atomic
+    part-surgery swap, through the SAME shared fold helper the
+    `__metrics__` downsampler now uses (`fold_rows_to_buckets` +
+    `downsample_parts` — one implementation, two callers). TTL /
+    retention trims drop every bucket below the tier-aligned horizon
+    and advance a LOW WATERMARK; the planner serves the sub-watermark
+    remainder (< one coarse bucket of surviving raw rows) from the
+    raw edge — so rollup answers track deletes exactly without
+    re-derivation, race-free against concurrent block applies.
+  * **Planner rewrite** (`match_view` + `try_rollup_partial`): a
+    windowed plan whose groupBy ⊆ view groupBy, whose lowered
+    aggregates all exist in the view, whose window rides the view's
+    time column, and whose filters are the view's filters plus
+    residuals on group columns, is transparently answered from the
+    rollup table: the window aligns to the coarsest resolution
+    PRESENT in the captured part set (every finer resolution divides
+    it, so any bucket inside the aligned middle is provably contained
+    by it), the aligned middle reads O(groups·buckets) aggregate rows
+    via the normal part-native engine, and the unaligned head/tail
+    edges scan raw flows — all partials merging exactly in int64, so
+    the result is bit-identical to the raw path. `execute_partial`
+    applies the same rewrite per peer, so PR-10 coordinators get
+    O(groups) partials even on cold month-scale history; EXPLAIN and
+    the result doc name the view, the alignment, and the stitched
+    edge spans.
+
+Env knobs (documented in docs/queries.md):
+
+    THEIA_ROLLUP_VIEWS      JSON view-definition file (hot-reloaded)
+    THEIA_ROLLUP_DEFAULTS   1 = include the reference's three MVs as
+                            built-in views (default 0)
+    THEIA_ROLLUP_QUERY      0 = disable the planner rewrite (forced
+                            raw scans; the bench A/B uses the per-
+                            request `rollup=0` flag instead)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..obs import metrics as _metrics
+from ..schema import FLOW_SCHEMA, Column, ColumnKind, ColumnarBatch
+from ..store.views import MATERIALIZED_VIEWS
+from ..utils.logging import get_logger
+from .plan import (Aggregate, Filter, PlanError, QueryPlan,
+                   _parse_aggregate, _parse_filter)
+from .reference import filter_mask, materialize_keys
+from .result import lower_specs
+from ..analysis.lockdep import named_lock
+
+logger = get_logger("rollup")
+
+#: result-table namespace of one view's aggregate parts
+ROLLUP_TABLE_PREFIX = "__rollup__:"
+#: bucket-start column of every rollup table (deliberately NOT
+#: `timeInserted`: the view's time column may itself be a group key —
+#: the reference MVs key on raw timeInserted — and the two must not
+#: collide)
+BUCKET_COLUMN = "bucketStart"
+RESOLUTION_COLUMN = "resolution"
+DEFAULT_BUCKET_SECONDS = 60
+
+#: partial-merge op per lowered aggregate op (mirrors kernels.MERGE_OP
+#: without importing the kernels at module load)
+_MERGE_OP = {"count": "sum", "sum": "sum", "min": "min", "max": "max"}
+
+_NAME_RE = re.compile(r"^[A-Za-z0-9_.\-]+$")
+
+#: rollup memtables force-seal on this cadence so aggregate rows
+#: become prunable, foldable parts (the obs/history SEAL_SPAN
+#: discipline — size-based sealing would hold low-cardinality views
+#: in the memtable for hours)
+SEAL_SPAN_SECONDS = 60
+
+_M_VIEWS = _metrics.gauge(
+    "theia_rollup_views",
+    "Declared active rollup views on this node (built-in defaults + "
+    "THEIA_ROLLUP_VIEWS), after the last successful config load")
+_M_APPLIED = _metrics.counter(
+    "theia_rollup_applied_rows_total",
+    "Flow rows folded into rollup views on the insert path (counted "
+    "once per view per physical store)")
+_M_AGG_ROWS = _metrics.counter(
+    "theia_rollup_aggregate_rows_total",
+    "Aggregate partial rows appended to __rollup__ tables by insert-"
+    "block maintenance")
+_M_APPLY_SECONDS = _metrics.histogram(
+    "theia_rollup_apply_seconds",
+    "Rollup maintenance time per flows insert block (all views)")
+_M_FOLDS = _metrics.counter(
+    "theia_rollup_folds_total",
+    "Rollup parts replaced by cascaded tier downsampling (atomic "
+    "part-surgery folds), by target resolution",
+    labelnames=("resolution",))
+_M_REWRITES = _metrics.counter(
+    "theia_rollup_query_rewrites_total",
+    "Queries transparently answered from rollup tiers by the planner "
+    "rewrite (stitched raw edges included)")
+
+
+class RollupConfigError(ValueError):
+    """A rollup view document is malformed — a config error surfaced
+    in /debug/views `loadError`, never an engine crash."""
+
+
+def config_path() -> str:
+    return os.environ.get("THEIA_ROLLUP_VIEWS", "")
+
+
+def defaults_enabled() -> bool:
+    return os.environ.get("THEIA_ROLLUP_DEFAULTS", "").strip().lower() \
+        in ("1", "true", "yes", "on")
+
+
+def rewrite_enabled() -> bool:
+    """THEIA_ROLLUP_QUERY: the planner-rewrite kill switch (default
+    on; maintenance is unaffected — only answering from rollups)."""
+    return os.environ.get("THEIA_ROLLUP_QUERY", "").strip().lower() \
+        not in ("0", "false", "off", "no")
+
+
+# -- view definitions ------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RollupView:
+    """One declared view: a normalized QueryPlan shape (groupBy +
+    lowered aggregates + filters + a time bucket) plus the tier
+    cascade. Immutable; config reloads replace the object."""
+
+    name: str
+    group_by: Tuple[str, ...]
+    #: lowered aggregate specs (label, op, column) — op in
+    #: count/sum/min/max only (mean lowered at parse)
+    specs: Tuple[Tuple[str, str, Optional[str]], ...]
+    filters: Tuple[Filter, ...]
+    bucket: int
+    #: (resolution seconds, fold after seconds), ascending; every
+    #: resolution is a multiple of its predecessor (bucket first)
+    tiers: Tuple[Tuple[int, int], ...]
+    time_column: str = "timeInserted"
+
+    @staticmethod
+    def agg_column(op: str, column: Optional[str]) -> str:
+        """Storage column of one lowered aggregate."""
+        return "agg_count" if op == "count" else f"agg_{op}_{column}"
+
+    def agg_columns(self) -> Dict[str, str]:
+        """{storage column: merge op} over the view's specs."""
+        return {self.agg_column(op, col): _MERGE_OP[op]
+                for _, op, col in self.specs}
+
+    def schema(self) -> tuple:
+        """The `__rollup__:<name>` table schema: bucket + resolution +
+        the group columns (flow kinds preserved — strings stay
+        dictionary-coded) + one exact-int64 column per aggregate."""
+        by_name = {c.name: c for c in FLOW_SCHEMA}
+        cols: List[Column] = [
+            Column(BUCKET_COLUMN, ColumnKind.DATETIME),
+            Column(RESOLUTION_COLUMN, ColumnKind.U64),
+        ]
+        for g in self.group_by:
+            cols.append(by_name[g])
+        for _, op, col in self.specs:
+            cols.append(Column(self.agg_column(op, col),
+                               ColumnKind.U64))
+        return tuple(cols)
+
+    def max_resolution(self) -> int:
+        return self.tiers[-1][0] if self.tiers else self.bucket
+
+    def to_doc(self) -> Dict[str, object]:
+        return {
+            "name": self.name,
+            "groupBy": list(self.group_by),
+            "aggregates": [{"op": op, "column": col}
+                           for _, op, col in self.specs],
+            "filters": sorted((f.to_doc() for f in self.filters),
+                              key=lambda d: json.dumps(
+                                  d, sort_keys=True)),
+            "bucketSeconds": self.bucket,
+            "tiers": [{"resolutionSeconds": r, "afterSeconds": a}
+                      for r, a in self.tiers],
+            "timeColumn": self.time_column,
+        }
+
+    def normalized(self) -> str:
+        return json.dumps(self.to_doc(), sort_keys=True,
+                          separators=(",", ":"))
+
+
+def parse_view(doc: Dict[str, object]) -> RollupView:
+    """Validate one view document against the flow schema. Raises
+    RollupConfigError on anything malformed — the whole file is
+    rejected (the parse_rules discipline), so a typo cannot silently
+    drop one view while keeping its neighbors."""
+    if not isinstance(doc, dict):
+        raise RollupConfigError(f"view must be an object, got {doc!r}")
+    name = str(doc.get("name") or "").strip()
+    if not name or not _NAME_RE.match(name):
+        raise RollupConfigError(
+            f"view needs a [A-Za-z0-9_.-]+ `name`, got {name!r}")
+    by_name = {c.name: c for c in FLOW_SCHEMA}
+    group_by = doc.get("groupBy") or []
+    if isinstance(group_by, str):
+        group_by = [g for g in group_by.split(",") if g]
+    groups: List[str] = []
+    for g in group_by:
+        g = str(g)
+        if g not in by_name:
+            raise RollupConfigError(
+                f"view {name}: unknown groupBy column {g!r}")
+        if g in groups:
+            raise RollupConfigError(
+                f"view {name}: duplicate groupBy column {g!r}")
+        groups.append(g)
+    aggs_doc = doc.get("aggregates") or ["count"]
+    if isinstance(aggs_doc, (str, dict)):
+        aggs_doc = [aggs_doc]
+    specs: List[Tuple[str, str, Optional[str]]] = []
+
+    def add(label: str, op: str, column: Optional[str]) -> None:
+        if all(s[0] != label for s in specs):
+            specs.append((label, op, column))
+
+    try:
+        for a in aggs_doc:
+            agg = _parse_aggregate(a, FLOW_SCHEMA)
+            if agg.op == "mean":
+                # the query plane's exact lowering: a view declaring
+                # mean stores the (sum, count) partials it needs
+                add(f"sum({agg.column})", "sum", agg.column)
+                add("count", "count", None)
+            else:
+                add(agg.label, agg.op, agg.column)
+        filters = tuple(_parse_filter(f, FLOW_SCHEMA)
+                        for f in (doc.get("filters") or []))
+    except PlanError as e:
+        raise RollupConfigError(f"view {name}: {e}")
+    time_column = str(doc.get("timeColumn") or "timeInserted")
+    if time_column != "timeInserted":
+        # TTL / retention trims delete flows by timeInserted; a view
+        # bucketing any other column could not track those deletes
+        # exactly (a trim would touch arbitrary buckets)
+        raise RollupConfigError(
+            f"view {name}: timeColumn must be timeInserted "
+            f"(got {time_column!r}) — the TTL/retention contract")
+    bucket = int(doc.get("bucketSeconds", DEFAULT_BUCKET_SECONDS))
+    if bucket <= 0:
+        raise RollupConfigError(
+            f"view {name}: bucketSeconds must be positive")
+    tiers: List[Tuple[int, int]] = []
+    prev = bucket
+    for t in (doc.get("tiers") or []):
+        if not isinstance(t, dict):
+            raise RollupConfigError(
+                f"view {name}: tier must be an object, got {t!r}")
+        try:
+            res = int(t["resolutionSeconds"])
+            after = int(t["afterSeconds"])
+        except (KeyError, TypeError, ValueError):
+            raise RollupConfigError(
+                f"view {name}: tiers need integer resolutionSeconds "
+                f"and afterSeconds")
+        if res <= prev or res % prev != 0:
+            # the divisibility chain is what makes planner window
+            # alignment provable (any finer bucket inside an aligned
+            # window is contained by it)
+            raise RollupConfigError(
+                f"view {name}: tier resolution {res} must be an "
+                f"ascending multiple of the previous ({prev})")
+        if after <= 0:
+            raise RollupConfigError(
+                f"view {name}: afterSeconds must be positive")
+        tiers.append((res, after))
+        prev = res
+    return RollupView(name=name, group_by=tuple(groups),
+                      specs=tuple(specs), filters=filters,
+                      bucket=bucket, tiers=tuple(tiers),
+                      time_column=time_column)
+
+
+def default_views() -> List[RollupView]:
+    """The reference's three MVs (store/views.py MATERIALIZED_VIEWS)
+    re-declared as rollup views: full MV key set as the group key,
+    summed metric columns, base bucket, no coarser tiers (the raw MV
+    keys include raw timestamps, so coarser tiers would only compact
+    partial rows, never change an answer)."""
+    out: List[RollupView] = []
+    for name, spec in MATERIALIZED_VIEWS.items():
+        specs = tuple((f"sum({c})", "sum", c)
+                      for c in spec.sum_columns)
+        out.append(RollupView(
+            name=name, group_by=tuple(spec.key_columns), specs=specs,
+            filters=(), bucket=DEFAULT_BUCKET_SECONDS, tiers=()))
+    return out
+
+
+def parse_views(raw: str) -> List[Dict[str, object]]:
+    """THEIA_ROLLUP_VIEWS file → raw view documents (a JSON list, or
+    `{"views": [...]}`). Validation happens per entry in the merge
+    (entries may be `{"name": ..., "disabled": true}` overrides)."""
+    try:
+        doc = json.loads(raw)
+    except ValueError as e:
+        raise RollupConfigError(f"views file is not valid JSON: {e}")
+    if isinstance(doc, dict):
+        doc = doc.get("views")
+    if not isinstance(doc, list):
+        raise RollupConfigError(
+            "views file must be a JSON list (or {\"views\": [...]})")
+    return doc
+
+
+def merge_view_docs(defaults: Sequence[RollupView],
+                    docs: Sequence[Dict[str, object]]
+                    ) -> Dict[str, RollupView]:
+    """Built-in defaults + file entries, merged by name (file wins;
+    `disabled: true` removes a default)."""
+    merged: Dict[str, RollupView] = {v.name: v for v in defaults}
+    for d in docs:
+        if isinstance(d, dict) and d.get("disabled"):
+            name = str(d.get("name") or "")
+            merged.pop(name, None)
+            continue
+        v = parse_view(d)
+        merged[v.name] = v
+    names = list(merged)
+    if len(set(names)) != len(names):   # pragma: no cover - dict keys
+        raise RollupConfigError(f"duplicate view names: {names}")
+    return merged
+
+
+# -- shared bucket-fold helpers (metrics downsampler + rollup tiers) -------
+
+def fold_rows_to_buckets(batch: ColumnarBatch, resolution: int,
+                         key_columns: Sequence[str],
+                         merge_ops: Dict[str, str],
+                         time_column: str = "timeInserted",
+                         resolution_column: str = RESOLUTION_COLUMN,
+                         last_columns: Sequence[str] = ()
+                         ) -> List[Dict[str, object]]:
+    """Fold decoded rows into `resolution`-second buckets — THE shared
+    aligned-window fold (one implementation behind both the
+    `__metrics__` downsampler and the rollup tier cascade). Rows
+    already at or above the target resolution pass through unchanged
+    (recovery can reseal mixed-resolution parts); finer rows fold per
+    (key columns, bucket): `merge_ops` columns merge exactly
+    (min/max/sum), `last_columns` keep the latest-time sample in the
+    bucket (the cumulative-counter-exact `value` semantic)."""
+    out: List[Dict[str, object]] = []
+    acc: Dict[tuple, Dict[str, object]] = {}
+    t = np.asarray(batch[time_column], np.int64)
+    res = np.asarray(batch[resolution_column], np.int64)
+    keys = {c: (batch.strings(c) if c in batch.dicts
+                else np.asarray(batch[c], np.int64))
+            for c in key_columns}
+    cols = {c: np.asarray(batch[c], np.int64)
+            for c in (*merge_ops, *last_columns)}
+    for i in range(len(batch)):
+        kvals = tuple(
+            (str(keys[c][i]) if c in batch.dicts else int(keys[c][i]))
+            for c in key_columns)
+        if res[i] >= resolution:
+            out.append({
+                time_column: int(t[i]),
+                resolution_column: int(res[i]),
+                **dict(zip(key_columns, kvals)),
+                **{c: int(cols[c][i]) for c in cols}})
+            continue
+        bucket = int(t[i]) // resolution * resolution
+        key = (*kvals, bucket)
+        row = acc.get(key)
+        if row is None:
+            acc[key] = {
+                time_column: bucket,
+                resolution_column: resolution,
+                **dict(zip(key_columns, kvals)),
+                **{c: int(cols[c][i]) for c in cols},
+                "_last_t": int(t[i])}
+            continue
+        if last_columns and int(t[i]) >= row["_last_t"]:
+            row["_last_t"] = int(t[i])
+            for c in last_columns:
+                row[c] = int(cols[c][i])
+        for c, op in merge_ops.items():
+            v = int(cols[c][i])
+            if op == "sum":
+                row[c] += v
+            elif op == "min":
+                row[c] = min(row[c], v)
+            else:
+                row[c] = max(row[c], v)
+    for row in acc.values():
+        row.pop("_last_t")
+        out.append(row)
+    return out
+
+
+def downsample_parts(table, now: int,
+                     tiers: Sequence[Tuple[int, int]],
+                     fold: Callable[[ColumnarBatch, int],
+                                    List[Dict[str, object]]],
+                     time_column: str = "timeInserted",
+                     resolution_column: str = RESOLUTION_COLUMN
+                     ) -> Dict[int, int]:
+    """One cascade pass over one concrete PartTable — the shared
+    part-surgery loop (extracted from obs/history.py): for each
+    (resolution, age) tier, decode the sealed parts whose rows are all
+    older than `now - age` and not yet at that resolution, fold via
+    the callback, and atomically swap old parts for one rollup part
+    through the PartTable surgery contract (`sealed_parts` +
+    `replace_parts`). Readers see the old parts or the new one, never
+    neither. Returns {resolution: parts replaced}; a swap that loses
+    to a concurrent merge/demote aborts for this tier and the next
+    pass retries against fresh state."""
+    out: Dict[int, int] = {}
+    if not callable(getattr(table, "sealed_parts", None)):
+        return out   # flat Table (no parts engine) — nothing to do
+    for resolution, age in tiers:
+        cutoff = int(now) - int(age)
+        eligible = [
+            p for p in table.sealed_parts()
+            if p.minmax.get(time_column) is not None
+            and p.minmax[time_column][1] < cutoff
+            and p.minmax.get(resolution_column) is not None
+            and p.minmax[resolution_column][0] < resolution]
+        if not eligible:
+            continue
+        batch = ColumnarBatch.concat(
+            [table._decode_part(p) for p in eligible])
+        folded = fold(batch, resolution)
+        if not table.replace_parts(eligible, folded):
+            continue
+        out[resolution] = out.get(resolution, 0) + len(eligible)
+    return out
+
+
+# -- insert-block fold (the maintenance hot path) --------------------------
+
+def _hash_runs(keys: np.ndarray
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(order, run starts, sorted keys) grouping rows by full key via
+    a 64-bit row hash sort — the group_sum_fast trick generalized:
+    ~20x less sort work than lexsorting 15-20 key columns. A hash
+    collision between distinct keys may split one group across runs;
+    every run is still key-uniform (full-row boundary compare), so the
+    emitted partial rows stay exactly mergeable — the read path
+    re-groups, which is where SummingMergeTree collapses rows too."""
+    n = keys.shape[0]
+    h = np.full(n, 0xcbf29ce484222325, np.uint64)
+    for i in range(keys.shape[1]):
+        x = keys[:, i].astype(np.uint64)
+        x *= np.uint64(0xff51afd7ed558ccd)
+        x ^= x >> np.uint64(33)
+        h ^= x
+        h *= np.uint64(0x100000001b3)
+    order = np.argsort(h, kind="stable")
+    sk = keys[order]
+    boundary = np.empty(n, dtype=bool)
+    boundary[0] = True
+    boundary[1:] = np.any(sk[1:] != sk[:-1], axis=1)
+    return order, np.flatnonzero(boundary), sk
+
+
+_FOLD_UFUNC = {"sum": np.add, "min": np.minimum, "max": np.maximum}
+
+#: packed-key fold ceiling: the product of the block's per-column
+#: key ranges must fit this for the O(n) bincount path (the
+#: occupancy scoreboard and its cumsum are O(cap))
+_PACK_CAP = 1 << 21
+#: bincount's float64 weights hold integer partial sums EXACTLY only
+#: below 2^53; splitting int64 values into 32-bit halves bounds each
+#: half's sum by n * 2^32, so n must stay under 2^21
+_PACK_MAX_ROWS = 1 << 21
+
+
+def _packed_fold(keycols: List[np.ndarray],
+                 specs: Sequence[Tuple[str, str, Optional[str]]],
+                 values: Dict[str, np.ndarray]
+                 ) -> Optional[Tuple[np.ndarray,
+                                     Dict[str, np.ndarray]]]:
+    """O(n) insert-block fold for SMALL key spaces: pack the key
+    columns into one narrow integer (per-column block min/range
+    strides), scoreboard the occupied slots, and reduce each sum
+    column with two bincounts (32-bit halves — each half's float64
+    partial sums stay integer-exact below 2^53, recombined in int64,
+    so the result is bit-identical to the sort paths). Returns None
+    when the shape disqualifies it: a min/max spec, a negative
+    value, or a key-range product over _PACK_CAP — callers fall back
+    to the native/hash-sort folds."""
+    n = len(keycols[0])
+    if n == 0 or n > _PACK_MAX_ROWS:
+        return None
+    if any(op not in ("count", "sum") for _, op, _ in specs):
+        return None
+    packed = None
+    mins: List[int] = []
+    strides: List[int] = []
+    total = 1
+    for col in keycols:
+        mn = int(col.min())
+        rng = int(col.max()) - mn + 1
+        mins.append(mn)
+        strides.append(total)
+        total *= rng
+        if total > _PACK_CAP:
+            return None
+    packed = np.zeros(n, np.int64)
+    for col, mn, stride in zip(keycols, mins, strides):
+        packed += (col - mn) * stride
+    mask = np.zeros(total, bool)
+    mask[packed] = True
+    uniq_packed = np.flatnonzero(mask)
+    remap = np.cumsum(mask, dtype=np.int32) - 1
+    gids = remap[packed]
+    g = len(uniq_packed)
+    uniq = np.empty((g, len(keycols)), np.int64)
+    rem = uniq_packed
+    for j in range(len(keycols) - 1, -1, -1):
+        uniq[:, j] = rem // strides[j] + mins[j]
+        rem = rem % strides[j]
+    counts = None
+    out: Dict[str, np.ndarray] = {}
+    for label, op, col in specs:
+        if op == "count":
+            if counts is None:
+                counts = np.bincount(gids, minlength=g).astype(
+                    np.int64)
+            out[label] = counts
+            continue
+        v = values[col]
+        if int(v.min()) < 0:
+            return None   # the 32-bit split assumes non-negative
+        lo = np.bincount(gids, weights=(v & 0xFFFFFFFF),
+                         minlength=g)
+        hi = np.bincount(gids, weights=(v >> 32), minlength=g)
+        out[label] = (lo.astype(np.int64)
+                      + (hi.astype(np.int64) << 32))
+    return uniq, out
+
+
+# -- the per-store manager -------------------------------------------------
+
+class RollupManager:
+    """Owns one physical FlowDatabase's rollup state: the view set
+    (hot-reloaded), one parts-backed `__rollup__:<view>` table per
+    view, insert-block application, the tier cascade, delete
+    tracking, and snapshot persistence. Constructed by FlowDatabase;
+    sharded/replicated topologies hold one manager per physical
+    store, each maintaining deterministically identical state from
+    its own row stream."""
+
+    def __init__(self, db, path: Optional[str] = None,
+                 include_defaults: Optional[bool] = None) -> None:
+        self.db = db
+        self.path = config_path() if path is None else path
+        self.include_defaults = (defaults_enabled()
+                                 if include_defaults is None
+                                 else bool(include_defaults))
+        self.views: Dict[str, RollupView] = {}
+        self.tables: Dict[str, object] = {}
+        self._plans: Dict[str, QueryPlan] = {}
+        self.load_error: Optional[str] = None
+        self.loaded_at: Optional[float] = None
+        self._mtime: Optional[float] = None
+        self._lock = named_lock("rollup.manager")
+        #: per-view LOW WATERMARK (a bucket-aligned timestamp): a
+        #: TTL/retention trim drops every rollup bucket below it and
+        #: advances it; the planner serves [watermark, ...) from the
+        #: rollup tiers and routes everything below it to the raw
+        #: edge. This is what makes trims race-free against
+        #: concurrent block applies WITHOUT re-derivation: a late
+        #: apply that re-creates sub-watermark partial rows leaves
+        #: dead weight the planner ignores (and the next trim
+        #: drops), never a wrong answer.
+        self._watermarks: Dict[str, int] = {}
+        self.rows_applied = 0
+        self.agg_rows = 0
+        self.folds = 0
+        self.rebuilds = 0
+        self._last_seal = 0
+        self.reload(rebuild=False)
+
+    @property
+    def active(self) -> bool:
+        return bool(self.views)
+
+    def table(self, name: str):
+        return self.tables[name]
+
+    def views_snapshot(self) -> Dict[str, RollupView]:
+        """Point-in-time copy of the view set — what the query-path
+        readers iterate (the hot-reload thread mutates self.views
+        under the lock; iterating the live dict from an HTTP thread
+        would race a reload into RuntimeError)."""
+        with self._lock:
+            return dict(self.views)
+
+    def table_for(self, name: str):
+        """The named view's table, or None (race-safe against a
+        concurrent reload removing the view)."""
+        with self._lock:
+            return self.tables.get(name)
+
+    def watermark_for(self, name: str) -> int:
+        """The view's trim low watermark: rollup buckets below it
+        are dropped (or dead weight) — the planner must serve that
+        region from the raw edge."""
+        with self._lock:
+            return self._watermarks.get(name, 0)
+
+    # -- config loading ----------------------------------------------------
+
+    def _maintenance_plan(self, view: RollupView) -> QueryPlan:
+        """Filter template for the insert-block fold (filter_mask only
+        reads filters/start/end/time columns)."""
+        return QueryPlan(
+            group_by=(), aggregates=(Aggregate("count", None),),
+            filters=view.filters, start=None, end=None,
+            time_column=view.time_column,
+            end_column=view.time_column, k=0, order_by="count")
+
+    def _make_table(self, view: RollupView):
+        from ..store.parts import PartTable
+        return PartTable(
+            ROLLUP_TABLE_PREFIX + view.name, view.schema(),
+            sort_key=(BUCKET_COLUMN, *view.group_by),
+            time_column=BUCKET_COLUMN,
+            prune_columns=(BUCKET_COLUMN, RESOLUTION_COLUMN))
+
+    def reload(self, force: bool = False, rebuild: bool = True) -> bool:
+        """(Re)load the view set: built-in defaults merged with the
+        THEIA_ROLLUP_VIEWS file (re-read when its mtime moved, or
+        `force`). A parse error KEEPS the previous set maintaining and
+        records `loadError`. New or redefined views rebuild their
+        aggregates from the raw flows currently in the store (under
+        the ingest latch where one exists, so a racing insert can
+        neither be missed nor double-counted); removed views drop
+        their tables. Returns True when the active set changed."""
+        docs: List[Dict[str, object]] = []
+        unreadable = False
+        if self.path:
+            try:
+                mtime = os.stat(self.path).st_mtime
+            except OSError as e:
+                self.load_error = f"views file unreadable: {e}"
+                if self.views:
+                    return False   # keep the previous set evaluating
+                # nothing loaded yet: fall through so the built-in
+                # defaults (explicitly enabled) still activate; the
+                # recorded loadError keeps every later maintain pass
+                # re-probing the path until the file appears
+                logger.error(
+                    "rollup views file unreadable (%s) — activating "
+                    "built-in defaults only until it appears", e)
+                unreadable = True
+            if not unreadable:
+                if not force and mtime == self._mtime and \
+                        self.load_error is None:
+                    return False
+                self._mtime = mtime
+        if self.path and not unreadable:
+            try:
+                with open(self.path) as f:
+                    docs = parse_views(f.read())
+            except (OSError, RollupConfigError) as e:
+                self.load_error = str(e)
+                logger.error(
+                    "rollup views reload failed (keeping %d previous "
+                    "views): %s", len(self.views), e)
+                return False
+        defaults = default_views() if self.include_defaults else []
+        try:
+            merged = merge_view_docs(defaults, docs)
+        except RollupConfigError as e:
+            self.load_error = str(e)
+            logger.error(
+                "rollup views reload failed (keeping %d previous "
+                "views): %s", len(self.views), e)
+            return False
+        if not unreadable:
+            self.load_error = None
+        self.loaded_at = time.time()
+        with self._lock:
+            changed = False
+            for name in list(self.views):
+                if name not in merged:
+                    del self.views[name]
+                    del self.tables[name]
+                    self._plans.pop(name, None)
+                    self._watermarks.pop(name, None)
+                    changed = True
+            staged: List[Tuple[str, RollupView, object]] = []
+            for name, view in merged.items():
+                old = self.views.get(name)
+                if old is not None and \
+                        old.normalized() == view.normalized():
+                    continue
+                staged.append((name, view, self._make_table(view)))
+                changed = True
+        if staged:
+            if rebuild:
+                # derive the staged tables' content BEFORE installing
+                # them: a query racing the reload keeps answering from
+                # the previous view (or raw) instead of from an empty
+                # table missing the whole middle of history. ALWAYS
+                # through the latch path, even on an apparently-empty
+                # store — a first insert racing the length check
+                # would otherwise apply to the old view set and then
+                # be missing from the freshly-installed empty table
+                # forever. _rebuild_staged acquires the ingest latch
+                # first and the manager lock second — the same order
+                # as the insert path — and installs the finished
+                # tables while the latch still excludes inserts, so
+                # no block can slip between the derivation scan and
+                # visibility (on an empty store it is a no-op scan).
+                self._rebuild_staged(staged)
+            else:
+                # constructor path only (rebuild=False): nothing is
+                # serving yet, install directly
+                with self._lock:
+                    for name, view, table in staged:
+                        self.views[name] = view
+                        self.tables[name] = table
+                        self._plans[name] = \
+                            self._maintenance_plan(view)
+                        self._watermarks.pop(name, None)
+        _M_VIEWS.set(len(self.views))
+        if changed:
+            logger.info("rollup views loaded: %d active (%s)",
+                        len(self.views),
+                        ",".join(sorted(self.views)) or "-")
+        return changed
+
+    # -- insert-path maintenance -------------------------------------------
+
+    def apply_insert_block(self, block: ColumnarBatch) -> None:
+        """Fold one adopted flows insert block into every view — the
+        MV SELECT ... GROUP BY per inserted block, emitting exactly-
+        mergeable aggregate partial rows into the view's parts-backed
+        table. WAL-invisible by design: the flows record is journaled,
+        so crash replay re-runs this hook and re-derives identical
+        state (journaling the rollup insert too would double-count the
+        block on replay)."""
+        with self._lock:
+            items = [(v, self.tables[n], self._plans[n])
+                     for n, v in self.views.items()]
+        if not items or not len(block):
+            return
+        t0 = time.perf_counter()
+        for view, table, tplan in items:
+            self._apply_one(view, table, tplan, block)
+        _M_APPLY_SECONDS.observe(time.perf_counter() - t0)
+
+    def _apply_one(self, view: RollupView, table, tplan: QueryPlan,
+                   block: ColumnarBatch) -> None:
+        sel = block
+        if view.filters:
+            mask = filter_mask(tplan, block, self.db.flows.dicts)
+            if not mask.any():
+                return
+            if not mask.all():
+                sel = block.filter(mask)
+        n = len(sel)
+        if n == 0:
+            return
+        t = np.asarray(sel[view.time_column], np.int64)
+        bucket = (t // view.bucket) * view.bucket
+        keycols = [bucket] + [np.asarray(sel[c], np.int64)
+                              for c in view.group_by]
+        uniq: Optional[np.ndarray] = None
+        agg_out: Dict[str, np.ndarray] = {}
+        vals_by_col = {col: np.asarray(sel[col], np.int64)
+                       for _, op, col in view.specs
+                       if col is not None}
+        packed = _packed_fold(keycols, view.specs, vals_by_col)
+        if packed is not None:
+            uniq, by_label = packed
+            for label, op, col in view.specs:
+                agg_out[view.agg_column(op, col)] = by_label[label]
+        if uniq is None and all(
+                op in ("count", "sum") for _, op, _ in view.specs):
+            # sum/count-only views take the MV hot path: one native
+            # single-pass hash group-sum (ingest/native.py — the
+            # GIL-releasing kernel the legacy ViewTable fan-out uses;
+            # count rides as a summed ones column)
+            from ..ingest.native import native_group_sum
+            vals = [(np.ones(n, np.int64) if op == "count"
+                     else np.asarray(sel[col], np.int64))
+                    for _, op, col in view.specs]
+            out = native_group_sum(keycols, vals)
+            if out is not None:
+                uniq, reduced = out
+                for j, (_, op, col) in enumerate(view.specs):
+                    agg_out[view.agg_column(op, col)] = reduced[:, j]
+        if uniq is None:
+            # mixed min/max (or no native kernel): hash-run grouping
+            # + one reduceat per aggregate — still exact partials
+            keys = np.stack(keycols, axis=1)
+            order, starts, sk = _hash_runs(keys)
+            uniq = sk[starts]
+            src: Dict[str, np.ndarray] = {}
+            for _, op, col in view.specs:
+                if col is not None and col not in src:
+                    src[col] = np.asarray(sel[col], np.int64)[order]
+            for _, op, col in view.specs:
+                name = view.agg_column(op, col)
+                if op == "count":
+                    agg_out[name] = np.diff(
+                        np.append(starts, n)).astype(np.int64)
+                else:
+                    agg_out[name] = _FOLD_UFUNC[op].reduceat(
+                        src[col], starts)
+        g = uniq.shape[0]
+        cols: Dict[str, np.ndarray] = {
+            BUCKET_COLUMN: np.asarray(uniq[:, 0], np.int64),
+            RESOLUTION_COLUMN: np.full(g, view.bucket, np.int64),
+            **agg_out,
+        }
+        flows_dicts = self.db.flows.dicts
+        dicts = {}
+        by_name = {c.name: c for c in FLOW_SCHEMA}
+        for i, gcol in enumerate(view.group_by):
+            arr = uniq[:, 1 + i]
+            col = by_name[gcol]
+            cols[gcol] = arr.astype(col.host_dtype)
+            if col.is_string:
+                dicts[gcol] = flows_dicts[gcol]
+        table.insert(ColumnarBatch(cols, dicts))
+        self.rows_applied += n
+        self.agg_rows += g
+        _M_APPLIED.inc(n)
+        _M_AGG_ROWS.inc(g)
+
+    # -- background maintenance --------------------------------------------
+
+    def maintain(self, now: Optional[int] = None) -> int:
+        """One pass: hot-reload the config, run the tier cascade
+        (shared part-surgery fold) and part compaction over every view
+        table. Returns folds + merges performed (keeps the maintenance
+        loop's cadence honest). Driven by PartMaintenanceLoop via
+        FlowDatabase.maintenance_tick."""
+        now = int(time.time()) if now is None else int(now)
+        self.reload()
+        with self._lock:
+            items = [(v, self.tables[n])
+                     for n, v in self.views.items()]
+        work = 0
+        if items and now - self._last_seal >= SEAL_SPAN_SECONDS:
+            # force-seal on a time cadence so aggregate rows become
+            # sorted, prunable parts the tier cascade can fold
+            for _, table in items:
+                seal = getattr(table, "seal", None)
+                if callable(seal):
+                    seal()
+            self._last_seal = now
+        for view, table in items:
+            if view.tiers:
+                merges = view.agg_columns()
+                per = downsample_parts(
+                    table, now, view.tiers,
+                    lambda batch, res, _m=merges, _v=view:
+                        fold_rows_to_buckets(
+                            batch, res, _v.group_by, _m,
+                            time_column=BUCKET_COLUMN),
+                    time_column=BUCKET_COLUMN)
+                for res, cnt in per.items():
+                    _M_FOLDS.labels(resolution=str(res)).inc(cnt)
+                    self.folds += cnt
+                    work += cnt
+            maintain = getattr(table, "maintain", None)
+            if callable(maintain):
+                work += int(maintain())
+        return work
+
+    # -- delete tracking ---------------------------------------------------
+
+    def apply_delete(self, boundary: int) -> None:
+        """Track a `timeInserted < boundary` flows trim (TTL /
+        retention): every rollup bucket below H — the boundary
+        rounded up to the view's coarsest tier — is dropped (whole
+        parts below H drop without decoding; one straddling part
+        pays a rewrite) and the view's LOW WATERMARK advances to H.
+        Buckets at or above H hold only surviving rows, and the
+        planner answers [watermark, ...) from rollups with the
+        sub-watermark remainder (< one coarse bucket of surviving
+        raw rows) stitched from the raw scan — so rollup answers
+        track the trim exactly without re-deriving anything, and a
+        concurrent insert whose apply lands after the drop merely
+        leaves ignored dead weight below the watermark."""
+        with self._lock:
+            items = [(v, self.tables[n])
+                     for n, v in self.views.items()]
+        for view, table in items:
+            R = view.max_resolution()
+            H = -(-int(boundary) // R) * R
+            mn = table.min_value(BUCKET_COLUMN)
+            if mn is None or mn >= H:
+                continue   # nothing below H → nothing to drop/cover
+            # watermark BEFORE the drop: a query captures part refs
+            # first and reads the watermark second, so any reader
+            # that can observe the post-drop part set must also
+            # observe the advanced watermark (the reverse order
+            # could serve a middle whose trimmed region is covered
+            # by neither rollup buckets nor the raw edge)
+            with self._lock:
+                if self._watermarks.get(view.name, 0) < H:
+                    self._watermarks[view.name] = H
+            table.delete_older_than(H, column=BUCKET_COLUMN)
+
+    # -- rebuild / persistence / resync ------------------------------------
+
+    def truncate_all(self) -> None:
+        with self._lock:
+            for t in self.tables.values():
+                t.truncate()
+            self._watermarks.clear()   # resync re-derives exactly
+
+    def _flows_batches(self):
+        flows = self.db.flows
+        if hasattr(flows, "_snapshot_refs"):
+            parts, mem = flows._snapshot_refs()
+            for p in parts:
+                yield flows._decode_part(p)
+            for b in mem:
+                yield b
+        else:
+            yield flows.scan()
+
+    def _rebuild(self, names: Sequence[str]) -> None:
+        """Re-derive ALREADY-INSTALLED views from the raw flows in
+        the store (snapshot restore with definition drift — load
+        time, before the store serves queries). Lock ORDER matters:
+        the ingest latch (where the store has one) is taken FIRST —
+        excluding in-flight insert_flows, so a block is counted
+        exactly once (by the rebuild scan or by its own apply, never
+        both) — and self._lock second, the same order as the insert
+        path (which holds latch.read while apply takes the manager
+        lock); taking them the other way around deadlocks against
+        concurrent ingest."""
+        latch = getattr(self.db, "_ingest_latch", None)
+        import contextlib
+        with (latch.write() if latch is not None
+              else contextlib.nullcontext()):
+            with self._lock:
+                items = [(self.views[n], self.tables[n],
+                          self._plans[n])
+                         for n in names if n in self.views]
+                for _, table, _ in items:
+                    table.truncate()
+                for batch in self._flows_batches():
+                    if not len(batch):
+                        continue
+                    for view, table, tplan in items:
+                        self._apply_one(view, table, tplan, batch)
+                for n in names:
+                    self._watermarks.pop(n, None)
+                self.rebuilds += len(items)
+
+    def _rebuild_staged(self, staged) -> None:
+        """Hot-reload half of the rebuild: derive STAGED (not yet
+        visible) tables from the flows rows, then install them —
+        all while the ingest latch excludes in-flight inserts, so a
+        block is either in the derivation scan (its insert finished
+        first) or applies after installation, never lost and never
+        double-counted; queries meanwhile keep resolving the
+        previous table. Same latch-before-manager-lock order as
+        _rebuild."""
+        latch = getattr(self.db, "_ingest_latch", None)
+        import contextlib
+        with (latch.write() if latch is not None
+              else contextlib.nullcontext()):
+            plans = {name: self._maintenance_plan(view)
+                     for name, view, _ in staged}
+            for batch in self._flows_batches():
+                if not len(batch):
+                    continue
+                for name, view, table in staged:
+                    self._apply_one(view, table, plans[name], batch)
+            with self._lock:
+                for name, view, table in staged:
+                    self.views[name] = view
+                    self.tables[name] = table
+                    self._plans[name] = plans[name]
+                    self._watermarks.pop(name, None)
+                self.rebuilds += len(staged)
+
+    def snapshot_payload(self) -> Dict[str, np.ndarray]:
+        """Parts-aware snapshot leg: every view's aggregate state +
+        dictionaries, stamped with the view definition so load can
+        detect drift and rebuild instead of restoring a stale shape.
+        Captured under the caller's ingest latch / WAL quiesce (the
+        flow_store.save discipline)."""
+        with self._lock:
+            items = [(v, self.tables[n],
+                      self._watermarks.get(n, 0))
+                     for n, v in self.views.items()]
+        out: Dict[str, np.ndarray] = {}
+        for view, table, wm in items:
+            base = f"__rollup__/{view.name}"
+            out[f"{base}/__def__"] = np.asarray(view.normalized(),
+                                                dtype=object)
+            if wm:
+                # the trim watermark must survive restarts: without
+                # it a stale sub-watermark partial row (the benign
+                # dead weight a concurrent apply can leave) would be
+                # served as real data after a reload
+                out[f"{base}/__watermark__"] = np.asarray(wm,
+                                                          np.int64)
+            data = table.scan()
+            for col in table.schema:
+                out[f"{base}/{col.name}"] = data[col.name]
+            for cname, d in table.dicts.items():
+                out[f"{base}/__dict__/{cname}"] = np.asarray(
+                    d._strings, dtype=object)
+        return out
+
+    def restore_or_rebuild(self, payload: Dict[str, np.ndarray]
+                           ) -> int:
+        """Load-side counterpart: views whose persisted definition
+        matches restore their aggregate rows wholesale; the rest
+        (absent from the payload, or redefined since the snapshot)
+        rebuild from the loaded flows. Returns views restored."""
+        restored = 0
+        missing: List[str] = []
+        with self._lock:
+            items = [(v, self.tables[n])
+                     for n, v in self.views.items()]
+        for view, table in items:
+            base = f"__rollup__/{view.name}"
+            key = f"{base}/__def__"
+            ok = key in payload and str(
+                np.asarray(payload[key]).item()) == view.normalized()
+            if ok:
+                for cname, d in table.dicts.items():
+                    dk = f"{base}/__dict__/{cname}"
+                    if dk in payload:
+                        for s in payload[dk]:
+                            d.encode_one(str(s))
+                cols: Dict[str, np.ndarray] = {}
+                for col in table.schema:
+                    ck = f"{base}/{col.name}"
+                    if ck not in payload:
+                        ok = False
+                        break
+                    cols[col.name] = np.asarray(payload[ck],
+                                                col.host_dtype)
+                if ok:
+                    n = len(next(iter(cols.values()))) if cols else 0
+                    if n:
+                        table.insert(ColumnarBatch(cols, table.dicts))
+                    wk = f"{base}/__watermark__"
+                    if wk in payload:
+                        with self._lock:
+                            self._watermarks[view.name] = int(
+                                np.asarray(payload[wk]))
+                    restored += 1
+                    continue
+            missing.append(view.name)
+        if missing and len(self.db.flows):
+            logger.info(
+                "rollup views %s not restorable from snapshot "
+                "(new or redefined) — rebuilding from %d flow rows",
+                ",".join(missing), len(self.db.flows))
+            self._rebuild(missing)
+        return restored
+
+    # -- observability -----------------------------------------------------
+
+    def stats(self) -> Dict[str, object]:
+        return {
+            "views": len(self.views),
+            "rowsApplied": self.rows_applied,
+            "aggregateRows": self.agg_rows,
+            "folds": self.folds,
+            "rebuilds": self.rebuilds,
+            "configPath": self.path or None,
+            "loadError": self.load_error,
+        }
+
+    def doc(self) -> Dict[str, object]:
+        """Inspection doc for GET /debug/views (one manager's half —
+        views_doc() aggregates across shards)."""
+        with self._lock:
+            items = [(v, self.tables[n],
+                      self._watermarks.get(n, 0))
+                     for n, v in self.views.items()]
+        views = []
+        for view, table, wm in items:
+            vdoc: Dict[str, object] = {
+                "definition": view.to_doc(),
+                "rows": len(table),
+                "bytes": table.nbytes,
+            }
+            if wm:
+                vdoc["watermark"] = wm
+            ps = getattr(table, "parts_stats", None)
+            if callable(ps):
+                s = ps()
+                vdoc["parts"] = s["count"]
+                vdoc["memtableRows"] = s["memtableRows"]
+                resolutions = sorted({
+                    int(p.minmax[RESOLUTION_COLUMN][0])
+                    for p in table.sealed_parts()
+                    if p.minmax.get(RESOLUTION_COLUMN) is not None})
+                vdoc["partResolutions"] = resolutions
+            views.append(vdoc)
+        out = self.stats()
+        out["views"] = views   # stats() counts them; doc lists them
+        return out
+
+
+# -- topology resolution ---------------------------------------------------
+
+def rollup_managers(db) -> List[RollupManager]:
+    """Every RollupManager behind a store topology (all replicas, all
+    shards) — the maintenance/inspection view."""
+    reps = getattr(db, "replicas", None)
+    if reps:
+        return [m for r in reps for m in rollup_managers(r)]
+    shards = getattr(db, "shards", None)
+    if shards:
+        return [m for s in shards for m in rollup_managers(s)]
+    m = getattr(db, "rollups", None)
+    return [m] if isinstance(m, RollupManager) else []
+
+
+def _read_db(db):
+    """The store a READ should hit: the active replica of a
+    replicated topology, the facade itself otherwise."""
+    if getattr(db, "replicas", None):
+        return db.active
+    return db
+
+
+def query_managers(db) -> List[RollupManager]:
+    """The managers one query's rollup read resolves against: per
+    shard on a sharded store, the active replica's on a replicated
+    one."""
+    return rollup_managers(_read_db(db))
+
+
+def rollup_active(db) -> bool:
+    try:
+        return any(m.active for m in rollup_managers(db))
+    except Exception:
+        return False
+
+
+def rollup_configured(db) -> bool:
+    """True when ANY rollup config source exists (a views file path
+    or defaults enabled) — the maintenance-loop gate. Deliberately
+    broader than rollup_active: a file that is torn/empty/missing at
+    boot must still get the hot-reload cadence that will pick up its
+    repair, which active-view gating would never start."""
+    try:
+        return any(m.path or m.include_defaults
+                   for m in rollup_managers(db))
+    except Exception:
+        return False
+
+
+def truncate_rollups(db) -> None:
+    for m in rollup_managers(db):
+        m.truncate_all()
+
+
+def views_doc(db) -> Dict[str, object]:
+    """GET /debug/views: declared views, tiers, per-store part/row
+    counts, maintenance stats, loadError — the /debug/parts shape."""
+    mgrs = rollup_managers(db)
+    if not mgrs:
+        return {"enabled": False, "views": []}
+    by_name: Dict[str, Dict[str, object]] = {}
+    load_error = None
+    for i, m in enumerate(mgrs):
+        mdoc = m.doc()
+        load_error = load_error or mdoc.get("loadError")
+        for vdoc in mdoc["views"]:
+            name = vdoc["definition"]["name"]
+            agg = by_name.setdefault(name, {
+                "name": name,
+                "definition": vdoc["definition"],
+                "rows": 0, "parts": 0, "bytes": 0,
+                "memtableRows": 0, "partResolutions": [],
+            })
+            agg["rows"] += vdoc.get("rows", 0)
+            agg["bytes"] += vdoc.get("bytes", 0)
+            agg["parts"] += vdoc.get("parts", 0)
+            agg["memtableRows"] += vdoc.get("memtableRows", 0)
+            agg["partResolutions"] = sorted(
+                set(agg["partResolutions"])
+                | set(vdoc.get("partResolutions") or []))
+    totals = [m.stats() for m in mgrs]
+    return {
+        "enabled": any(m.active for m in mgrs),
+        "stores": len(mgrs),
+        "configPath": mgrs[0].path or None,
+        "loadError": load_error,
+        "rowsApplied": sum(t["rowsApplied"] for t in totals),
+        "aggregateRows": sum(t["aggregateRows"] for t in totals),
+        "folds": sum(t["folds"] for t in totals),
+        "rebuilds": sum(t["rebuilds"] for t in totals),
+        "views": sorted(by_name.values(),
+                        key=lambda v: str(v["name"])),
+    }
+
+
+# -- the planner rewrite ---------------------------------------------------
+
+def match_view(db, plan: QueryPlan) -> Optional[RollupView]:
+    """The first declared view (declaration order) that SUBSUMES the
+    plan, or None. Subsumption: the plan targets `flows`; its groupBy
+    is a subset of the view's; each of its lowered aggregates exists
+    in the view; any window rides the view's time column; the view's
+    own filters all appear in the plan (they are pre-applied at
+    maintenance time) and every residual plan filter names a view
+    group column (group keys are stored exactly, so residual
+    predicates evaluate on the aggregate rows)."""
+    if plan.table != "flows" or not rewrite_enabled():
+        return None
+    mgrs = query_managers(db)
+    if not mgrs:
+        return None
+    snaps = [m.views_snapshot() for m in mgrs]
+    best = None
+    for view in snaps[0].values():
+        if all(view.name in s
+               and s[view.name].normalized() == view.normalized()
+               for s in snaps) and _subsumes(view, plan):
+            # most SELECTIVE subsuming view wins: fewest group
+            # columns (fewest aggregate rows per bucket), then the
+            # coarsest tier cascade — a plan both a full-key default
+            # MV and a narrow tiered view subsume must take the
+            # narrow one or the speedup is quietly forfeited; ties
+            # fall back to declaration order
+            key = (len(view.group_by), -view.max_resolution())
+            if best is None or key < best[0]:
+                best = (key, view)
+    return best[1] if best else None
+
+
+def _subsumes(view: RollupView, plan: QueryPlan) -> bool:
+    gset = set(view.group_by)
+    if not set(plan.group_by) <= gset:
+        return False
+    if plan.start is not None and plan.time_column != view.time_column:
+        return False
+    if plan.end is not None and plan.end_column != view.time_column:
+        return False
+    have = {(op, col) for _, op, col in view.specs}
+    for _, op, col in lower_specs(plan):
+        if (op, col) not in have:
+            return False
+    vf = set(view.filters)
+    pf = set(plan.filters)
+    if not vf <= pf:
+        return False
+    return all(f.column in gset for f in pf - vf)
+
+
+def _internal_plan(view: RollupView, plan: QueryPlan,
+                   lo: Optional[int], hi: Optional[int]
+                   ) -> Tuple[QueryPlan, Dict[str, str]]:
+    """The plan the engine executes over the `__rollup__:<view>`
+    table, plus the internal-label → user-label rename map. User
+    aggregates become their partial-merge op over the storage column
+    (count → sum(agg_count), min(c) → min(agg_min_c), ...)."""
+    internal: List[Aggregate] = []
+    label_map: Dict[str, str] = {}
+    for label, op, col in lower_specs(plan):
+        a = Aggregate(_MERGE_OP[op], view.agg_column(op, col))
+        if a.label not in label_map:
+            internal.append(a)
+        label_map[a.label] = label
+    vf = set(view.filters)
+    residual = tuple(f for f in plan.filters if f not in vf)
+    iplan = QueryPlan(
+        group_by=plan.group_by, aggregates=tuple(internal),
+        filters=residual, start=lo, end=hi,
+        time_column=BUCKET_COLUMN, end_column=BUCKET_COLUMN,
+        k=0, order_by=internal[0].label,
+        table=ROLLUP_TABLE_PREFIX + view.name)
+    return iplan, label_map
+
+
+def _align_boundary(refs, value: int, base: int,
+                    ceil: bool) -> Optional[Tuple[int, int]]:
+    """(aligned boundary, alignment used), or None: iterate
+    alignment up the tier chain until NO captured bucket straddles
+    the candidate (a bucket (t, r) straddles B iff t < B < t+r;
+    per-part the check is conservative from resident bucketStart /
+    resolution min-max). Per-boundary alignment is what keeps a
+    ragged RECENT window edge at base-bucket width even when months
+    of old history have folded coarse — a global coarsest-tier
+    alignment would force raw-scan edges up to a whole coarse bucket
+    wide on both sides. Returns None when a part lacks the metadata
+    to prove anything (caller declines the rewrite)."""
+    a = int(base)
+    for _ in range(16):   # tier chains are short; a only grows
+        bnd = (-(-int(value) // a) * a) if ceil else \
+            (int(value) // a * a)
+        need = int(base)
+        for parts, mem in refs:
+            for p in parts:
+                mt = p.minmax.get(BUCKET_COLUMN)
+                mr = p.minmax.get(RESOLUTION_COLUMN)
+                if mt is None or mr is None:
+                    return None
+                if mt[0] < bnd and mt[1] + mr[1] > bnd:
+                    need = max(need, int(mr[1]))
+            for b in mem:
+                if not len(b):
+                    continue
+                t = np.asarray(b[BUCKET_COLUMN], np.int64)
+                r = np.asarray(b[RESOLUTION_COLUMN], np.int64)
+                straddle = (t < bnd) & (t + r > bnd)
+                if straddle.any():
+                    need = max(need, int(r[straddle].max()))
+        if need <= a:
+            return bnd, a
+        a = need
+    return None   # pragma: no cover - chain validation bounds this
+
+
+def try_rollup_partial(engine, plan: QueryPlan, stats: Dict[str, int],
+                       prof, view: RollupView):
+    """Answer `plan` from the view's rollup tiers: capture each
+    rollup table's part set ONCE, align each window edge to the
+    coarsest bucket actually straddling it (per-boundary — the tier
+    divisibility chain plus the straddle check prove every bucket
+    inside the aligned middle is contained by it), read the middle
+    from the aggregate parts through the normal part-native engine,
+    scan the unaligned head/tail edges from raw flows, and merge all
+    partials exactly in materialized key space. Returns (keys, aggs,
+    info) or None when the rewrite cannot serve this plan against
+    current state (caller falls back to the raw path)."""
+    from .engine import merge_materialized
+    db = engine.db
+    mgrs = query_managers(db)
+    tables = []
+    for m in mgrs:
+        t = m.table_for(view.name)
+        if t is None:
+            return None
+        tables.append(t)
+    if not tables:
+        return None
+    refs = [t._snapshot_refs() for t in tables]
+    wm = max((m.watermark_for(view.name) for m in mgrs), default=0)
+    lo = plan.start
+    hi = plan.end
+    align = view.bucket
+    head_at_watermark = False
+    if wm:
+        # TTL/retention trims dropped every bucket below the
+        # watermark (any late-apply leftovers there are dead weight):
+        # the middle may only start at wm — aligned by construction,
+        # nothing straddles it — with the sub-watermark survivors
+        # stitched from the raw edge
+        if hi is not None and int(hi) <= wm:
+            return None   # whole window below the watermark → raw
+        if lo is None or int(lo) < wm:
+            lo = wm
+            head_at_watermark = True
+    if lo is not None and not head_at_watermark:
+        got = _align_boundary(refs, int(lo), view.bucket, ceil=True)
+        if got is None:
+            return None
+        lo, a_lo = got
+        align = max(align, a_lo)
+    if hi is not None:
+        got = _align_boundary(refs, int(hi), view.bucket, ceil=False)
+        if got is None:
+            return None
+        hi, a_hi = got
+        align = max(align, a_hi)
+    if lo is not None and hi is not None and lo >= hi:
+        return None   # window narrower than one aligned bucket
+    iplan, label_map = _internal_plan(view, plan, lo, hi)
+    results = []
+    for t, r in zip(tables, refs):
+        keys, aggs = engine._execute_table(iplan, t, stats, prof,
+                                           refs=r)
+        if aggs is not None:
+            results.append((keys, {label_map[k]: v
+                                   for k, v in aggs.items()}))
+    edges: List[List[Optional[int]]] = []
+    if lo is not None and (
+            (plan.start is None and head_at_watermark)
+            or (plan.start is not None and plan.start < lo)):
+        # a None head means "everything below lo" (open-start plan
+        # clamped at the trim watermark — raw holds only survivors)
+        edges.append([None if plan.start is None
+                      else int(plan.start), int(lo)])
+    if plan.end is not None and hi is not None and hi < plan.end:
+        edges.append([int(hi), int(plan.end)])
+    flows_tables = engine._tables("flows")
+    for s, e in edges:
+        eplan = dataclasses.replace(
+            plan, start=s, end=e, time_column=view.time_column,
+            end_column=view.time_column, k=0)
+        keys, aggs = engine._partial_for_tables(eplan, flows_tables,
+                                                stats, prof)
+        if aggs is not None:
+            results.append((keys, aggs))
+    info = {
+        "view": view.name,
+        "alignment": align,
+        "middle": [lo, hi],
+        "edges": edges,
+    }
+    if wm:
+        info["watermark"] = wm
+    _M_REWRITES.inc()
+    if not results:
+        return None, None, info
+    if len(results) == 1:
+        keys, aggs = results[0]
+        return keys, aggs, info
+    keys, aggs = merge_materialized(plan, results)
+    return keys, aggs, info
+
+
+# -- dashboard view reads (the legacy ViewTable.scan shape) ----------------
+
+_SCAN_ENGINES: "weakref.WeakKeyDictionary" = None
+
+
+def _scan_engine(db):
+    """One cached QueryEngine per store for the dashboard view
+    reads — constructing an engine (cache, env parsing) per panel
+    render would do the same setup work on every HTTP request."""
+    global _SCAN_ENGINES
+    import weakref
+    if _SCAN_ENGINES is None:
+        _SCAN_ENGINES = weakref.WeakKeyDictionary()
+    eng = _SCAN_ENGINES.get(db)
+    if eng is None:
+        from .engine import QueryEngine
+        eng = QueryEngine(db)
+        _SCAN_ENGINES[db] = eng
+    return eng
+
+
+def view_scan_batch(db, name: str) -> Optional[ColumnarBatch]:
+    """One view's aggregate state in the legacy ViewTable.scan shape
+    (group-key columns + summed metric columns, one row per group) —
+    the rollup-backed read path dashboards/queries.py routes through
+    behind THEIA_DASHBOARD_ROLLUP. Returns None when the view is not
+    declared on this store (caller falls back to the legacy table).
+    Bucket partial rows collapse across buckets here, so the result
+    is group-for-group identical to ViewTable.scan()."""
+    mgrs = query_managers(db)
+    snaps = [m.views_snapshot() for m in mgrs]
+    if not mgrs or any(name not in s for s in snaps):
+        return None
+    view = snaps[0][name]
+    uplan = QueryPlan(
+        group_by=view.group_by,
+        aggregates=tuple(Aggregate(op, col)
+                         for _, op, col in view.specs),
+        filters=(), start=None, end=None,
+        time_column=view.time_column, end_column=view.time_column,
+        k=0, order_by=view.specs[0][0])
+    iplan, label_map = _internal_plan(view, uplan, None, None)
+    value_col = {label: (col if op != "count" else "count")
+                 for label, op, col in view.specs}
+    if len(set(value_col.values())) != len(value_col):
+        # two ops over one column (a redefined built-in): fall back
+        # to the unambiguous aggregate labels as output column names
+        value_col = {label: label for label, _, _ in view.specs}
+    by_name = {c.name: c for c in FLOW_SCHEMA}
+    out_schema = tuple(
+        [by_name[g] for g in view.group_by]
+        + [Column(value_col[label], ColumnKind.U64)
+           for label, _, _ in view.specs])
+    tables = [m.table_for(name) for m in mgrs]
+    if any(t is None for t in tables):
+        return None
+    # the PART-NATIVE engine path (encoded-space predicates, granule
+    # pruning, no whole-table decode — cold aggregate parts stream
+    # their column subset), not the reference oracle: a dashboard
+    # render over a big default view must not decode every part
+    eng = _scan_engine(db)
+    stats = {"rowsScanned": 0, "partsScanned": 0, "partsPruned": 0,
+             "granulesScanned": 0, "granulesSkipped": 0}
+    if len(tables) == 1:
+        # single store: stay in the table's code space (no decode)
+        t = tables[0]
+        partial = eng._parts_partials(iplan, t, stats)
+        if partial is None:
+            return ColumnarBatch(
+                {c.name: np.zeros(0, c.host_dtype)
+                 for c in out_schema}, {})
+        uniq, aggs = partial
+        cols: Dict[str, np.ndarray] = {}
+        dicts = {}
+        for j, g in enumerate(view.group_by):
+            col = by_name[g]
+            cols[g] = uniq[:, j].astype(col.host_dtype)
+            if col.is_string:
+                dicts[g] = t.dicts[g]
+        for label, _, _ in view.specs:
+            internal = next(il for il, ul in label_map.items()
+                            if ul == label)
+            cols[value_col[label]] = aggs[internal]
+        return ColumnarBatch(cols, dicts)
+    # sharded: materialize per shard (own dictionaries), merge, and
+    # re-encode into one batch with fresh dictionaries
+    from .engine import merge_materialized
+    results = []
+    for t in tables:
+        partial = eng._parts_partials(iplan, t, stats)
+        if partial is None:
+            continue
+        uniq, aggs = partial
+        keys = materialize_keys(iplan, uniq, t.dicts, t.schema)
+        results.append((keys, {label_map[k]: v
+                               for k, v in aggs.items()}))
+    keys, aggs = merge_materialized(uplan, results)
+    rows: List[Dict[str, object]] = []
+    if aggs is not None:
+        g = len(next(iter(aggs.values())))
+        for i in range(g):
+            row: Dict[str, object] = {}
+            for j, gcol in enumerate(view.group_by):
+                v = keys[j][i]
+                row[gcol] = v.item() if isinstance(v, np.generic) \
+                    else v
+            for label, _, _ in view.specs:
+                row[value_col[label]] = int(aggs[label][i])
+            rows.append(row)
+    return ColumnarBatch.from_rows(rows, out_schema)
+
+
+def assert_view_parity(rollup_batch: ColumnarBatch,
+                       legacy_batch: ColumnarBatch,
+                       name: str) -> None:
+    """Group-for-group equality between the rollup-backed view read
+    and the legacy ViewTable.scan() — the dashboard routing flag's
+    parity gate. Decodes both sides to value space (codes differ by
+    dictionary) and compares as mappings."""
+    def as_map(batch: ColumnarBatch) -> Dict[tuple, tuple]:
+        names = list(batch.column_names)
+        decoded = {n: (batch.strings(n) if n in batch.dicts
+                       else np.asarray(batch[n], np.int64))
+                   for n in names}
+        spec = MATERIALIZED_VIEWS.get(name)
+        key_names = [n for n in names
+                     if spec is None or n in spec.key_columns]
+        val_names = [n for n in names if n not in key_names]
+        out: Dict[tuple, tuple] = {}
+        for i in range(len(batch)):
+            k = tuple(str(decoded[n][i]) for n in key_names)
+            v = tuple(int(decoded[n][i]) for n in val_names)
+            out[k] = v
+        return out
+    a, b = as_map(rollup_batch), as_map(legacy_batch)
+    if a != b:
+        only_a = len(set(a) - set(b))
+        only_b = len(set(b) - set(a))
+        diff = sum(1 for k in set(a) & set(b) if a[k] != b[k])
+        raise RuntimeError(
+            f"rollup view {name} diverges from the legacy view: "
+            f"{only_a} groups only in rollup, {only_b} only in "
+            f"legacy, {diff} with different sums")

@@ -1,2 +1,29 @@
-"""Store-side codecs the port needs: the TBLK wire format (a copy of
-theia_tpu/store/wire.py)."""
+"""Columnar flow store: tables, materialized views, TTL, retention."""
+
+from .checkpoint import Checkpointer
+from .flow_store import (FlowDatabase, RetentionLoop, RetentionMonitor,
+                         SnapshotCorruption, Table, boundary_from_meta,
+                         read_snapshot, write_snapshot)
+from .parts import (PartMaintenanceLoop, PartsError,
+                    PartsManifestError, PartTable,
+                    default_store_engine)
+from .replicated import (AllReplicasDownError, ReplicaRepairLoop,
+                         ReplicatedFlowDatabase)
+from .sharded import (DistributedTable, DistributedView,
+                      ShardedFlowDatabase)
+from .views import (MATERIALIZED_VIEWS, ViewSpec, ViewTable, group_reduce,
+                    group_sum)
+from .wal import (SyncPolicy, WalCorruption, WalError, WriteAheadLog,
+                  default_sync_policy)
+
+__all__ = [
+    "AllReplicasDownError", "Checkpointer", "FlowDatabase",
+    "PartMaintenanceLoop", "PartsError", "PartsManifestError",
+    "PartTable", "ReplicaRepairLoop", "ReplicatedFlowDatabase",
+    "RetentionLoop", "RetentionMonitor", "SnapshotCorruption", "Table",
+    "boundary_from_meta", "default_store_engine",
+    "DistributedTable", "DistributedView", "ShardedFlowDatabase",
+    "MATERIALIZED_VIEWS", "ViewSpec", "ViewTable", "group_reduce", "group_sum",
+    "SyncPolicy", "WalCorruption", "WalError", "WriteAheadLog",
+    "default_sync_policy", "read_snapshot", "write_snapshot",
+]

@@ -1,0 +1,159 @@
+"""Incremental durability: periodic atomic snapshots of the store.
+
+Plays the durability role ClickHouse replication plays in the
+reference (Replicated*MergeTree + ZooKeeper, Helm
+build/charts/theia/values.yaml:121-183): without it, the store's
+contents exist only in memory and a crash loses everything since
+startup. A Checkpointer thread snapshots the database to the
+persistence path every `interval` seconds — atomically (write to a
+temp file in the same directory, then os.replace), so a crash at ANY
+moment leaves either the previous or the new complete snapshot, never
+a torn file. Loss after kill -9 is bounded by the checkpoint interval.
+
+The snapshot runs OFF the insert path: `FlowDatabase.save` scans each
+table under its own lock briefly (zero-copy concat of the append log),
+so ingest keeps flowing while the checkpoint compresses and writes.
+A cheap fingerprint (row counts + byte sizes) skips writes when
+nothing changed.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Optional, Tuple
+
+from ..utils import get_logger
+from ..utils.faults import fire as _fire_fault
+
+logger = get_logger("checkpoint")
+
+
+class Checkpointer:
+    """Background periodic snapshot writer for a FlowDatabase (or
+    ShardedFlowDatabase — both expose save()).
+
+    `assume_current=True` seeds the change detector with the
+    database's current state — pass it when the database was just
+    loaded from `path`, so an idle restart doesn't rewrite a
+    multi-GB identical snapshot on the first tick."""
+
+    def __init__(self, db, path: str, interval: float = 60.0,
+                 compress: bool = True,
+                 assume_current: bool = False) -> None:
+        self.db = db
+        self.path = path
+        self.interval = interval
+        self.compress = compress
+        self.checkpoints_written = 0
+        self.last_checkpoint_time: float = 0.0
+        self.last_error: Optional[str] = None
+        self._last_fingerprint: Optional[Tuple] = (
+            self._fingerprint() if assume_current else None)
+        #: WAL stamp of the PREVIOUS successful snapshot — GC lags one
+        #: checkpoint so the `.prev` fallback snapshot always still
+        #: has the log records above ITS stamp (collecting up to the
+        #: current stamp would orphan .prev the moment the primary
+        #: corrupts)
+        self._gc_stamp = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- lifecycle --------------------------------------------------------
+
+    def start(self) -> None:
+        self._gc_stale_tmp()
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="theia-checkpointer")
+        self._thread.start()
+
+    def _gc_stale_tmp(self) -> None:
+        """Remove orphaned atomic-write temp files beside the snapshot
+        (a kill -9 mid-write leaves a near-snapshot-size .tmp-*; a
+        crash-looping manager would otherwise leak one per cycle until
+        the volume fills). Age-gated so a concurrent writer's live
+        temp file is never collected, and scoped to SNAPSHOT temps
+        (.tmp-*.npz) only: THEIA_WAL_DIR may share this directory, and
+        the WAL's own files must never be collected by the snapshot
+        janitor."""
+        d = os.path.dirname(os.path.abspath(self.path)) or "."
+        now = time.time()
+        try:
+            names = os.listdir(d)
+        except OSError:
+            return
+        for name in names:
+            if not (name.startswith(".tmp-") and name.endswith(".npz")):
+                continue
+            p = os.path.join(d, name)
+            try:
+                if now - os.path.getmtime(p) > 60:
+                    os.unlink(p)
+                    logger.info("removed stale snapshot temp %s", p)
+            except OSError:
+                pass
+
+    def stop(self) -> bool:
+        """Returns False if the checkpoint thread failed to stop (a
+        wedged write) — the caller's final save could then race a
+        late os.replace; both writes are atomic, so the file is never
+        torn, but the caller should log the condition."""
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=30)
+            if self._thread.is_alive():
+                logger.error("checkpoint thread did not stop in 30s")
+                return False
+        return True
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.checkpoint()
+            except Exception as e:   # keep ticking after a bad write
+                self.last_error = f"{type(e).__name__}: {e}"
+                logger.error("checkpoint failed: %s", self.last_error)
+
+    # -- one checkpoint ---------------------------------------------------
+
+    def _fingerprint(self) -> Tuple:
+        """Change detector: per-table monotonic mutation counters
+        (Table.generation counts inserts AND deletes, so same-size
+        churn — TTL evicts N while ingest adds N — still registers;
+        row counts alone would not). Built from the result-table
+        REGISTRY, not a hardcoded table list: a result table added to
+        the store is covered automatically, so a completed job's rows
+        can never be invisible to the change detector (and silently
+        lost to a crash)."""
+        return (self.db.flows.generation,
+                *(self.db.result_tables[name].generation
+                  for name in sorted(self.db.result_tables)))
+
+    def checkpoint(self) -> bool:
+        """Write one snapshot (FlowDatabase.save is itself atomic:
+        temp file + rename); returns False when skipped (unchanged
+        since the last write). A successful stamped snapshot then
+        garbage-collects WAL segments wholly below the PREVIOUS
+        snapshot's stamp — covered by two generations, so recovery
+        keeps working from `<path>.prev` if the primary is later
+        found corrupt — bounding disk use to ~two checkpoint
+        intervals of log."""
+        fp = self._fingerprint()
+        if fp == self._last_fingerprint:
+            return False
+        _fire_fault("checkpoint.save", path=self.path)
+        stamp = self.db.save(self.path, compress=self.compress)
+        self._last_fingerprint = fp
+        self.checkpoints_written += 1
+        self.last_checkpoint_time = time.time()
+        gc = getattr(self.db, "wal_gc", None)
+        if self._gc_stamp is not None and callable(gc):
+            try:
+                gc(self._gc_stamp)
+            except Exception as e:   # GC failure must not fail the tick
+                logger.error("WAL gc after checkpoint failed: %s", e)
+        self._gc_stamp = stamp
+        logger.v(1).info("checkpoint %d written to %s",
+                         self.checkpoints_written, self.path)
+        return True

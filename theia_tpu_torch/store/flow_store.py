@@ -1,0 +1,1637 @@
+"""In-memory columnar flow database — the framework's L1 storage tier.
+
+Plays the role ClickHouse plays in the reference (tables declared in
+build/charts/theia/provisioning/datasources/create_table.sh): a `flows`
+table receiving high-rate inserts, three streaming materialized views
+(pod/node/policy — create_table.sh:92-351), result tables for the analytics
+jobs (`tadetector` create_table.sh:363-384, `recommendations` :353-360),
+TTL-based eviction (:87-88) and a retention monitor that trims the oldest
+fraction of rows when a capacity threshold is exceeded (reference:
+plugins/clickhouse-monitor/main.go:258-320).
+
+Design (TPU-first): tables are append-logs of equal-schema `ColumnarBatch`es
+sharing one dictionary set owned by the table, so any time-window selection
+is a zero-copy concat + boolean mask over fixed-width arrays, ready for
+`jax.device_put`. Materialized views are maintained *incrementally* on
+insert as integer-keyed segment sums (the SummingMergeTree equivalent),
+keeping the read path for dashboards O(view rows), not O(flow rows).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import contextlib
+import os
+import tempfile
+import threading
+import time
+import zlib
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..schema import (
+    DETSTATE_SCHEMA,
+    DROPDETECTION_SCHEMA,
+    FLOW_SCHEMA,
+    FLOWPATTERNS_SCHEMA,
+    METRICS_SCHEMA,
+    METRICS_TABLE,
+    RECOMMENDATIONS_SCHEMA,
+    SPATIALNOISE_SCHEMA,
+    TADETECTOR_SCHEMA,
+    ColumnarBatch,
+    DictionaryMapper,
+    StringDictionary,
+)
+
+#: analytics result tables, in declaration order — the single list the
+#: store, sharded facade, stats, persistence, and job GC iterate.
+#: `__metrics__` rides it so the WAL hooks, snapshots, replication
+#: fan-out, sharded facade, and resync all cover stored metrics
+#: history for free.
+RESULT_TABLE_SCHEMAS = (
+    ("tadetector", TADETECTOR_SCHEMA),
+    ("recommendations", RECOMMENDATIONS_SCHEMA),
+    ("dropdetection", DROPDETECTION_SCHEMA),
+    ("flowpatterns", FLOWPATTERNS_SCHEMA),
+    ("spatialnoise", SPATIALNOISE_SCHEMA),
+    # detector working-set spill state (ingest/state_tier.py) — riding
+    # this list is what makes spilled flow state survive kill -9,
+    # failover, and resync through the standard planes
+    ("detstate", DETSTATE_SCHEMA),
+    (METRICS_TABLE, METRICS_SCHEMA),
+)
+from ..obs import metrics as _metrics
+from ..utils.backoff import capped_backoff
+from ..utils.env import env_float
+from ..utils.faults import fire as _fire_fault
+from ..utils.logging import get_logger
+from ..utils.pool import get_pool
+from .views import MATERIALIZED_VIEWS, ViewTable
+from ..analysis.lockdep import named_lock
+
+_logger = get_logger("store")
+
+_M_INS_ROWS = _metrics.counter(
+    "theia_store_inserted_rows_total",
+    "Flow rows inserted, cumulative over every physical store in the "
+    "process (a replicated fan-out counts once per replica)")
+_M_INS_BYTES = _metrics.counter(
+    "theia_store_inserted_bytes_total",
+    "Column bytes of inserted flow rows (store-coded), cumulative per "
+    "physical store")
+_M_DEL_ROWS = _metrics.counter(
+    "theia_store_deleted_rows_total",
+    "Flow rows deleted by TTL eviction or retention trims",
+    labelnames=("reason",))
+_M_MV_FANOUT = _metrics.histogram(
+    "theia_store_mv_fanout_seconds",
+    "Materialized-view fan-out time per inserted block (all views)")
+_M_RET_ROUNDS = _metrics.counter(
+    "theia_retention_rounds_total",
+    "Retention-monitor rounds, by outcome",
+    labelnames=("result",))
+_M_RET_DELETED = _metrics.counter(
+    "theia_retention_rows_deleted_total",
+    "Flow rows trimmed by capacity-based retention rounds")
+_M_RET_DEMOTED = _metrics.counter(
+    "theia_retention_bytes_demoted_total",
+    "Resident bytes freed by demoting parts to the cold tier instead "
+    "of deleting rows (parts engine tiered retention)")
+_M_SNAP_FALLBACK = _metrics.counter(
+    "theia_snapshot_fallbacks_total",
+    "Snapshot loads that failed verification on the primary file and "
+    "fell back to the previous good snapshot (<path>.prev)")
+
+#: snapshot payload keys outside the table namespace
+WAL_LSNS_KEY = "__wal__/lsns"
+INTEGRITY_KEY = "__integrity__/crc32"
+
+
+class SnapshotCorruption(Exception):
+    """A snapshot file failed integrity verification."""
+
+
+def _view_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """Shared pool for parallel MV fan-out (native group-sum releases
+    the GIL, so the three aggregations genuinely overlap)."""
+    return get_pool("mv-fanout", 4)
+
+
+class Table:
+    """Append-only columnar table with store-owned dictionaries.
+
+    All inserted batches are re-encoded (if necessary) against the table's
+    dictionaries, so codes are comparable across the whole table and string
+    predicates compile to integer comparisons.
+    """
+
+    def __init__(self, name: str, schema) -> None:
+        self.name = name
+        self.schema = schema
+        self.dicts: Dict[str, StringDictionary] = {
+            c.name: StringDictionary() for c in schema if c.is_string}
+        self._batches: List[ColumnarBatch] = []
+        self._lock = named_lock("store.table")
+        #: monotonic mutation counter (inserts AND deletes) — the
+        #: checkpointer's change detector; row counts alone can't see
+        #: same-size churn (TTL evicts N, ingest adds N)
+        self.generation = 0
+        # Cumulative insert totals (rows / store-coded column bytes),
+        # maintained under the table lock. Unlike net table size these
+        # never decrease, so insert-rate stats based on them survive
+        # retention trims (deletes used to mask real throughput).
+        self.rows_inserted_total = 0
+        self.bytes_inserted_total = 0
+        # Cached source-dict → table-dict code mappings: a producer
+        # streaming blocks with its own dictionaries pays string
+        # re-encode only for NEW entries, not per block (the 6.6x
+        # per-block store overhead of BENCH_r04).
+        self._adopt_maps: Dict[str, DictionaryMapper] = {
+            name: DictionaryMapper(d) for name, d in self.dicts.items()}
+        self._adopt_lock = named_lock("store.table_adopt")
+        # Cached per-batch (min, max) of the time column, aligned with
+        # _batches: TTL's min_value() probe runs per insert and the
+        # retention boundary runs per monitor round — both become
+        # O(batches) metadata walks instead of O(rows) column scans.
+        self._time_column: Optional[str] = (
+            "timeInserted" if any(c.name == "timeInserted"
+                                  for c in schema) else None)
+        self._batch_meta: List[Tuple[int, int]] = []
+        # Durability hook, installed by FlowDatabase.attach_wal:
+        # called as hook(table_name, adopted, apply_fn) so the WAL can
+        # journal the store-coded batch BEFORE apply_fn makes it
+        # visible (and the caller acknowledges it). None = no WAL.
+        self._wal_hook: Optional[Callable] = None
+
+    def __len__(self) -> int:
+        return sum(len(b) for b in self._batches)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(v.nbytes for b in self._batches
+                   for v in b.columns.values())
+
+    def _adopt(self, batch: ColumnarBatch,
+               columns: Optional[Sequence[str]] = None
+               ) -> ColumnarBatch:
+        """Re-encode a batch against this table's dictionaries
+        (cached incremental mappings: amortized O(new dict entries)
+        per block, not O(dictionary)). `columns` adopts only that
+        subset (the column-subset cold-part decode path — the batch
+        then carries just those columns)."""
+        cols: Dict[str, np.ndarray] = {}
+        for col in self.schema:
+            if columns is not None and col.name not in columns:
+                continue
+            arr = batch[col.name]
+            if col.is_string:
+                src = batch.dicts.get(col.name)
+                if src is None:
+                    raise ValueError(
+                        f"string column {col.name} has no dictionary")
+                if src is not self.dicts[col.name]:
+                    with self._adopt_lock:
+                        arr = self._adopt_maps[col.name].remap(arr, src)
+            else:
+                arr = np.asarray(arr, dtype=col.host_dtype)
+            cols[col.name] = arr
+        return ColumnarBatch(cols, self.dicts)
+
+    def insert(self, batch: ColumnarBatch,
+               dedup: Optional[tuple] = None,
+               wire: Optional[memoryview] = None
+               ) -> Optional[ColumnarBatch]:
+        """Insert a batch; returns the adopted (store-coded) batch, or
+        None when empty, so callers can fan out the exact inserted block
+        without re-reading the append log under concurrency. With a
+        WAL attached, the record is journaled before the rows become
+        visible — a failed append fails the insert (no ack without
+        durability). `dedup=(stream, seq[, total_rows])` stamps the
+        producer's batch identity (and the logical batch size — a
+        sharded insert journals per-slice) into the WAL record
+        (wal.pack_dedup_tag), making the acknowledgement itself
+        crash-durable: recovery replays the rows AND restores the
+        dedup-window entry from the same frame, so a retried batch is
+        idempotent across kill -9.
+
+        `wire` is a received TBLK column section already encoding
+        `batch`'s rows (store/wire.py): the WAL journals those bytes
+        VERBATIM instead of re-encoding the adopted batch — the
+        zero-copy half of the TBLK ingest path. It must cover exactly
+        the same rows; a row-count mismatch falls back to re-encoding
+        rather than journaling bytes that disagree with the ack."""
+        if len(batch) == 0:
+            return None
+        adopted = self._adopt(batch)
+        if wire is not None:
+            from .wire import peek_counts
+            try:
+                w_rows, _ = peek_counts(wire)
+            except ValueError:
+                w_rows = -1
+            if w_rows != len(adopted):
+                wire = None
+        hook = self._wal_hook
+        if hook is None:
+            self._append_adopted(adopted)
+        else:
+            name = self.name
+            if dedup is not None:
+                from .wal import pack_dedup_tag
+                stream, seq = dedup[0], int(dedup[1])
+                # the LOGICAL batch total (callers that know it pass
+                # it; a bare slice defaults to its own length)
+                total = (int(dedup[2]) if len(dedup) > 2
+                         and dedup[2] is not None else len(batch))
+                name = pack_dedup_tag(self.name, stream, seq, total)
+            hook(name, adopted, self._append_adopted, wire=wire)
+        return adopted
+
+    def _append_adopted(self, adopted: ColumnarBatch) -> None:
+        """Make an already-adopted batch visible (the memory apply)."""
+        nbytes = sum(a.nbytes for a in adopted.columns.values())
+        with self._lock:
+            self._batches.append(adopted)
+            if self._time_column is not None:
+                a = adopted[self._time_column]
+                self._batch_meta.append((int(a.min()), int(a.max())))
+            self.generation += 1
+            self.rows_inserted_total += len(adopted)
+            self.bytes_inserted_total += nbytes
+
+    def _row_count_locked(self) -> int:
+        """Row count; caller holds self._lock (the sharded facade
+        computes per-shard mask offsets under every shard's lock)."""
+        return sum(len(b) for b in self._batches)
+
+    def _refresh_meta_locked(self) -> None:
+        """Rebuild the per-batch time metadata after a bulk rewrite of
+        _batches (delete paths — already O(kept rows))."""
+        if self._time_column is None:
+            return
+        self._batch_meta = [
+            (int(b[self._time_column].min()),
+             int(b[self._time_column].max()))
+            for b in self._batches]
+
+    def insert_rows(self, rows: Sequence[Mapping[str, object]]) -> int:
+        if not rows:
+            return 0
+        adopted = self.insert(
+            ColumnarBatch.from_rows(rows, self.schema, self.dicts))
+        return 0 if adopted is None else len(adopted)
+
+    def scan(self) -> ColumnarBatch:
+        """Whole-table view as one batch (concat of the append log).
+
+        Compacts the log as a side effect; the swap only happens if no
+        insert raced in between (otherwise the next scan compacts)."""
+        with self._lock:
+            batches = list(self._batches)
+        if not batches:
+            return ColumnarBatch(
+                {c.name: np.zeros(0, c.host_dtype) for c in self.schema},
+                self.dicts)
+        if len(batches) == 1:
+            return batches[0]
+        merged = ColumnarBatch.concat(batches)
+        with self._lock:
+            if len(self._batches) == len(batches) and \
+                    self._batches[-1] is batches[-1]:
+                self._batches = [merged]
+                if self._time_column is not None:
+                    self._batch_meta = [
+                        (min(m[0] for m in self._batch_meta),
+                         max(m[1] for m in self._batch_meta))]
+        return merged
+
+    def select(self, start_time: Optional[int] = None,
+               end_time: Optional[int] = None,
+               time_column: str = "flowStartSeconds",
+               end_column: str = "flowEndSeconds",
+               columns: Optional[Sequence[str]] = None
+               ) -> ColumnarBatch:
+        """Time-window select, mirroring the jobs' SQL predicates
+        (`flowStartSeconds >= start AND flowEndSeconds < end`, reference
+        policy_recommendation_job.py:796-798). `columns` projects the
+        result to that subset (the window mask still evaluates on the
+        full time columns) — the flat half of the parts engine's
+        column-subset read path, so query callers are engine-agnostic."""
+        data = self.scan()
+        if start_time is None and end_time is None:
+            return data if columns is None else data.select(columns)
+        mask = np.ones(len(data), dtype=bool)
+        if start_time is not None:
+            mask &= data[time_column] >= start_time
+        if end_time is not None:
+            mask &= data[end_column] < end_time
+        if columns is not None:
+            data = data.select(columns)
+        return data.filter(mask)
+
+    def delete_where(self, mask: np.ndarray) -> int:
+        """Delete rows matching `mask` over the current table contents.
+        Runs entirely under the table lock so a concurrent insert can
+        neither be dropped nor half-filtered."""
+        with self._lock:
+            return self._delete_where_locked(mask)
+
+    def _delete_where_locked(self, mask: np.ndarray) -> int:
+        """Body of delete_where; caller must hold self._lock (the
+        sharded store holds every shard's lock to apply one logical
+        mask atomically across shards)."""
+        if not self._batches:
+            if len(mask) != 0:
+                raise ValueError(
+                    f"mask length {len(mask)} != table length 0")
+            return 0
+        data = (self._batches[0] if len(self._batches) == 1
+                else ColumnarBatch.concat(self._batches))
+        if len(mask) != len(data):
+            raise ValueError(
+                f"mask length {len(mask)} != table length {len(data)}")
+        if not mask.any():
+            # No mutation → no generation bump: a spurious bump makes
+            # the checkpointer rewrite an unchanged snapshot.
+            return 0
+        kept = data.filter(~mask)
+        self._batches = [kept] if len(kept) else []
+        self._refresh_meta_locked()
+        self.generation += 1
+        return int(mask.sum())
+
+    def delete_ids(self, ids, column: str = "id",
+                   invert: bool = False) -> int:
+        """Value-based delete: rows whose `column` decodes into `ids`
+        (or does NOT, with invert=True). Safe wherever a positional
+        mask is not — replicas and shards hold the same logical rows
+        in different physical orders. The ids resolve through the
+        DICTIONARY (string → code, allocation-free lookup) so the
+        match is an integer isin over the codes — the old path
+        materialized the full decoded string column per call.
+        Computed under the table lock (including the id→code
+        resolution: with invert=True, an id whose code is minted by a
+        concurrent insert between resolution and mask would otherwise
+        have its fresh rows deleted as 'unlisted')."""
+        d = self.dicts[column]
+        with self._lock:
+            codes = np.asarray(sorted(
+                c for c in (d.lookup(str(s)) for s in ids)
+                if c is not None), np.int32)
+            if not self._batches:
+                return 0
+            data = (self._batches[0] if len(self._batches) == 1
+                    else ColumnarBatch.concat(self._batches))
+            if len(codes):
+                mask = np.isin(np.asarray(data[column], np.int32),
+                               codes)
+            else:
+                mask = np.zeros(len(data), bool)
+            if invert:
+                mask = ~mask
+            return self._delete_where_locked(mask)
+
+    def delete_older_than(self, boundary: int,
+                          column: str = "timeInserted") -> int:
+        """Atomic `column < boundary` delete (mask computed under the
+        lock, so it cannot race with inserts). Batches whose cached
+        max is already >= boundary skip the column scan."""
+        with self._lock:
+            if not self._batches:
+                return 0
+            if column == self._time_column and self._batch_meta and \
+                    min(m[0] for m in self._batch_meta) >= boundary:
+                return 0   # metadata proves nothing is evictable
+            data = (self._batches[0] if len(self._batches) == 1
+                    else ColumnarBatch.concat(self._batches))
+            mask = np.asarray(data[column]) < boundary
+            if not mask.any():
+                self._batches = [data]
+                self._refresh_meta_locked()
+                return 0
+            kept = data.filter(~mask)
+            self._batches = [kept] if len(kept) else []
+            self._refresh_meta_locked()
+            self.generation += 1
+        return int(mask.sum())
+
+    #: columns whose (min, max) the cluster heartbeat piggybacks so a
+    #: query coordinator can prune peers against a plan's time window
+    TIME_BOUND_COLUMNS = ("timeInserted", "flowStartSeconds",
+                          "flowEndSeconds")
+
+    def time_bounds(self, columns: Sequence[str] = TIME_BOUND_COLUMNS
+                    ) -> Dict[str, Tuple[int, int]]:
+        """{column: (min, max)} over the resident rows for the
+        standard query-window columns — the heartbeat piggyback behind
+        cluster peer pruning (query/distributed.py). On this flat
+        engine it is an O(rows) numpy scan, so the caller throttles
+        (THEIA_CLUSTER_BOUNDS_INTERVAL); PartTable overrides with its
+        resident part metadata. Columns absent from the schema (or an
+        empty table) are omitted — 'unknown', never 'empty range'."""
+        with self._lock:
+            batches = list(self._batches)
+        out: Dict[str, Tuple[int, int]] = {}
+        for col in columns:
+            pairs = [(int(b[col].min()), int(b[col].max()))
+                     for b in batches if col in b and len(b)]
+            if pairs:
+                out[col] = (min(p[0] for p in pairs),
+                            max(p[1] for p in pairs))
+        return out
+
+    def min_value(self, column: str = "timeInserted") -> Optional[int]:
+        """Min over a column without concatenating (None when empty).
+        For the time column this is an O(batches) walk over cached
+        per-batch minima — the TTL fast path runs it every insert."""
+        with self._lock:
+            if column == self._time_column:
+                return (min(m[0] for m in self._batch_meta)
+                        if self._batch_meta else None)
+            batches = list(self._batches)
+        mins = [int(b[column].min()) for b in batches if len(b)]
+        return min(mins) if mins else None
+
+    def _retention_meta(self) -> List[Tuple[int, int, int, Callable]]:
+        """(min, max, rows, fetch_time_column) per resident batch —
+        the retention monitor's O(parts) boundary substrate."""
+        col = self._time_column
+        if col is None:
+            return []
+        with self._lock:
+            pairs = list(zip(self._batches, self._batch_meta))
+        return [(mn, mx, len(b),
+                 (lambda b=b: np.asarray(b[col])))
+                for b, (mn, mx) in pairs]
+
+    def retention_boundary(self, delete_n: int) -> Optional[int]:
+        """timeInserted value of the delete_n-th oldest row, from
+        per-batch metadata (see boundary_from_meta)."""
+        return boundary_from_meta(self._retention_meta(), delete_n)
+
+    def truncate(self) -> None:
+        with self._lock:
+            self._batches = []
+            self._batch_meta = []
+            self.generation += 1
+
+
+def boundary_from_meta(metas: List[Tuple[int, int, int, Callable]],
+                       delete_n: int) -> Optional[int]:
+    """Retention boundary (the timeInserted of the delete_n-th oldest
+    row) from per-part metadata, EXACTLY and without sorting the whole
+    table: sort parts by min time, accumulate row counts until a
+    prefix covers the target rank, then np.partition over the time
+    columns of every part whose min is ≤ that prefix's max. Parts
+    excluded that way hold only values strictly above the prefix max,
+    which already bounds the target from above, so the candidate-set
+    k-th smallest IS the global k-th smallest — the same value the
+    old O(n log n) full-column sort produced, at O(parts log parts)
+    metadata work plus a linear partition over the candidate rows
+    (≈ the delete fraction for in-order ingest).
+
+    `metas` entries are (min, max, rows, fetch) where fetch() lazily
+    materializes that part's time column (only candidates pay)."""
+    if delete_n <= 0 or not metas:
+        return None
+    ordered = sorted(metas, key=lambda m: (m[0], m[1]))
+    cum = 0
+    upper: Optional[int] = None
+    for mn, mx, rows, _ in ordered:
+        cum += rows
+        upper = mx if upper is None else max(upper, mx)
+        if cum >= delete_n:
+            break
+    if cum < delete_n:
+        # delete_n exceeds the metadata's row total (racing deletes):
+        # everything metadata knows about is deletable
+        return int(upper) + 1 if upper is not None else None
+    cols = [np.asarray(fetch()) for mn, _, _, fetch in ordered
+            if mn <= upper]
+    col = cols[0] if len(cols) == 1 else np.concatenate(cols)
+    k = delete_n - 1
+    return int(np.partition(col, k)[k])
+
+
+class RetentionMonitor:
+    """Capacity-based retention, one round per `tick()` call.
+
+    Reference semantics (plugins/clickhouse-monitor/main.go:258-320 and
+    Helm defaults values.yaml:16-30): every interval, if used/total >
+    threshold, find the timeInserted boundary below which the oldest
+    `delete_percentage` of rows fall, delete rows older than the boundary
+    from the flows table and all materialized views, then skip
+    `skip_rounds` rounds after a successful deletion.
+    """
+
+    def __init__(self, db: "FlowDatabase", capacity_bytes: int,
+                 threshold: float = 0.5, delete_percentage: float = 0.5,
+                 skip_rounds: int = 3) -> None:
+        self.db = db
+        self.capacity_bytes = capacity_bytes
+        self.threshold = threshold
+        self.delete_percentage = delete_percentage
+        self.skip_rounds = skip_rounds
+        self._remaining_skip = 0
+        #: cumulative resident bytes freed by demoting parts to the
+        #: cold tier instead of deleting rows (parts engine only)
+        self.bytes_demoted = 0
+
+    def usage(self) -> float:
+        return self.db.flows.nbytes / float(self.capacity_bytes)
+
+    def tick(self) -> int:
+        """Run one monitor round; returns number of flow rows deleted.
+
+        Tiered retention (parts engine): over-threshold rounds first
+        DEMOTE the oldest hot parts to the cold (disk) tier — data is
+        preserved, resident bytes fall — and only delete rows when
+        demotion alone cannot reach the threshold (no part directory,
+        or everything already cold). The boundary for the delete comes
+        from part/batch min-max metadata (retention_boundary — O(parts)),
+        not a full-column sort."""
+        if self._remaining_skip > 0:
+            self._remaining_skip -= 1
+            return 0
+        if self.usage() <= self.threshold:
+            return 0
+        demote = getattr(self.db, "demote_cold", None)
+        if callable(demote):
+            freed = int(demote(
+                int(self.capacity_bytes * self.threshold)))
+            if freed:
+                self.bytes_demoted += freed
+                _M_RET_DEMOTED.inc(freed)
+                if self.usage() <= self.threshold:
+                    self._remaining_skip = self.skip_rounds
+                    return 0
+        flows = self.db.flows
+        n = len(flows)
+        if n == 0:
+            return 0
+        delete_n = int(n * self.delete_percentage)
+        if delete_n == 0:
+            return 0
+        # timeInserted of the latest row to delete (LIMIT 1 OFFSET n-1,
+        # main.go:301-318); delete strictly-older rows like the
+        # reference's `timeInserted < boundary`.
+        boundary = None
+        rb = getattr(flows, "retention_boundary", None)
+        if callable(rb):
+            boundary = rb(delete_n)
+        if boundary is None:
+            t = np.asarray(flows.scan()["timeInserted"])
+            boundary = int(np.partition(t, delete_n - 1)[delete_n - 1])
+        deleted = self.db.delete_flows_older_than(int(boundary))
+        if deleted:
+            self._remaining_skip = self.skip_rounds
+            _M_RET_DELETED.inc(deleted)
+            _M_DEL_ROWS.labels(reason="retention").inc(deleted)
+        return deleted
+
+
+class RetentionLoop:
+    """Supervised background driver for RetentionMonitor — the role of
+    the reference's clickhouse-monitor sidecar loop
+    (plugins/clickhouse-monitor/main.go:83-101: a ticker that runs a
+    monitor round forever). The monitor itself stays a pure
+    one-round-per-tick object; this loop owns the thread, the
+    schedule, and the failure policy:
+
+      * one `tick()` per THEIA_RETENTION_INTERVAL seconds (injectable
+        for tests via `interval`/`run_once()` — no sleeping tests);
+      * a FAILED round (e.g. every replica down mid-trim) backs off
+        with the shared `capped_backoff` schedule instead of hammering
+        a broken store every interval; the first clean round resets
+        the cadence;
+      * rounds / rows-deleted / failures are counted here (and as
+        metrics), surfaced through `stats()` on GET /healthz.
+    """
+
+    def __init__(self, monitor: RetentionMonitor,
+                 interval: Optional[float] = None,
+                 backoff_cap: float = 300.0) -> None:
+        self.monitor = monitor
+        self.interval = (env_float("THEIA_RETENTION_INTERVAL", 60.0)
+                         if interval is None else float(interval))
+        self.backoff_cap = backoff_cap
+        self.rounds = 0
+        self.rows_deleted = 0
+        self.failures = 0
+        self.consecutive_failures = 0
+        self.current_delay = self.interval
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="theia-retention")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=15)
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.current_delay):
+            self.run_once()
+
+    def run_once(self) -> int:
+        """One supervised round; returns rows deleted (0 on a failed
+        round). Public so tests drive the schedule synchronously."""
+        try:
+            deleted = self.monitor.tick()
+        except Exception as e:   # a bad round must not kill the loop
+            self.failures += 1
+            self.consecutive_failures += 1
+            self.current_delay = capped_backoff(
+                max(self.interval, 0.001) * 2, self.backoff_cap,
+                self.consecutive_failures)
+            _M_RET_ROUNDS.labels(result="error").inc()
+            _logger.error(
+                "retention round failed (%d consecutive): %s; "
+                "backing off %.1fs", self.consecutive_failures, e,
+                self.current_delay)
+            return 0
+        if self.consecutive_failures:
+            _logger.info("retention recovered after %d failed rounds",
+                         self.consecutive_failures)
+        self.consecutive_failures = 0
+        self.current_delay = self.interval
+        self.rounds += 1
+        self.rows_deleted += deleted
+        _M_RET_ROUNDS.labels(
+            result="trimmed" if deleted else "idle").inc()
+        if deleted:
+            _logger.info("retention trimmed %d rows (usage %.1f%%)",
+                         deleted, self.monitor.usage() * 100)
+        return deleted
+
+    def stats(self) -> Dict[str, object]:
+        """Operator view (merged into GET /healthz)."""
+        try:
+            usage = self.monitor.usage()
+        except Exception:
+            usage = float("nan")
+        return {
+            "rounds": self.rounds,
+            "rowsDeleted": self.rows_deleted,
+            "bytesDemoted": getattr(self.monitor, "bytes_demoted", 0),
+            "failures": self.failures,
+            "intervalSeconds": self.interval,
+            "capacityBytes": self.monitor.capacity_bytes,
+            "usagePercent": round(usage * 100, 2),
+        }
+
+
+def payload_digest(payload: Mapping[str, np.ndarray]) -> int:
+    """Content checksum over a snapshot payload (every key except the
+    integrity stamp itself) — defense in depth over the zip
+    container's per-member CRCs: one whole-payload value that covers
+    cross-member consistency (a member replaced or dropped with the
+    container left valid) and survives a future non-zip snapshot
+    format. Object (string-table) arrays hash their joined utf-8
+    contents in one pass, so the digest is stable across a save/load
+    round trip and costs far less than the compression beside it."""
+    crc = 0
+    for key in sorted(payload):
+        if key == INTEGRITY_KEY:
+            continue
+        arr = np.asarray(payload[key])
+        crc = zlib.crc32(key.encode("utf-8"), crc)
+        if arr.dtype == object:
+            blob = "\x1f".join(map(str, arr.reshape(-1).tolist()))
+            crc = zlib.crc32(blob.encode("utf-8", "surrogatepass"),
+                             crc)
+        else:
+            crc = zlib.crc32(arr.dtype.str.encode("ascii"), crc)
+            crc = zlib.crc32(np.ascontiguousarray(arr).tobytes(), crc)
+    return crc & 0xFFFFFFFF
+
+
+def write_snapshot(path: str, payload: Dict[str, np.ndarray],
+                   compress: bool = True,
+                   wal_lsns: Optional[Sequence[int]] = None) -> None:
+    """Publish a snapshot: stamp schema version, WAL LSNs, and an
+    integrity footer; write to a same-directory temp file; keep the
+    previous good snapshot as `<path>.prev`; then atomically replace.
+    A crash at ANY point leaves either the previous or the new
+    complete snapshot reachable (possibly only as .prev — the loader
+    falls back)."""
+    from .migration import CURRENT_SCHEMA_VERSION, force
+    force(payload, CURRENT_SCHEMA_VERSION)
+    if wal_lsns is not None:
+        payload[WAL_LSNS_KEY] = np.asarray(list(wal_lsns), np.int64)
+    payload[INTEGRITY_KEY] = np.asarray(payload_digest(payload),
+                                        np.int64)
+    writer = np.savez_compressed if compress else np.savez
+    d = os.path.dirname(os.path.abspath(path)) or "."
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=".tmp-", suffix=".npz")
+    os.close(fd)
+    try:
+        writer(tmp, **payload)
+        if os.path.exists(path):
+            os.replace(path, path + ".prev")
+        os.replace(tmp, path)
+    except BaseException:
+        with contextlib.suppress(OSError):
+            os.unlink(tmp)
+        raise
+
+
+def read_snapshot(path: str) -> Dict[str, np.ndarray]:
+    """Load + verify a snapshot. A primary that fails verification
+    (bad zip, short file, digest mismatch) falls back — loudly, with
+    a metric — to `<path>.prev` instead of crashing or silently
+    starting empty; FileNotFoundError propagates only when neither
+    file exists (the caller's fresh-start signal)."""
+    def _load(p: str) -> Dict[str, np.ndarray]:
+        with np.load(p, allow_pickle=True) as z:
+            payload = {k: z[k] for k in z.files}
+        stored = payload.get(INTEGRITY_KEY)
+        if stored is not None and \
+                int(np.asarray(stored)) != payload_digest(payload):
+            raise SnapshotCorruption(
+                f"snapshot {p} failed integrity verification "
+                f"(digest mismatch)")
+        return payload
+
+    prev = path + ".prev"
+    try:
+        return _load(path)
+    except FileNotFoundError:
+        if os.path.exists(prev):
+            _logger.error(
+                "snapshot %s missing but %s exists (crash between "
+                "prev-rotation and publish?) — loading the previous "
+                "snapshot", path, prev)
+            _M_SNAP_FALLBACK.inc()
+            return _load(prev)
+        raise
+    except Exception as e:
+        if os.path.exists(prev):
+            _logger.error(
+                "snapshot %s failed verification (%s: %s) — falling "
+                "back to previous good snapshot %s",
+                path, type(e).__name__, e, prev)
+            _M_SNAP_FALLBACK.inc()
+            try:
+                return _load(prev)
+            except Exception:
+                raise e
+        raise
+
+
+class FlowDatabase:
+    """The full database: flows + views + result tables + retention.
+
+    `ttl_seconds` mirrors the reference's `TTL timeInserted + INTERVAL ...`
+    (default 12 HOUR, values.yaml:80); eviction runs opportunistically on
+    insert (the MergeTree merge equivalent).
+    """
+
+    def __init__(self, ttl_seconds: Optional[int] = None,
+                 engine: Optional[str] = None,
+                 parts_dir: Optional[str] = None,
+                 parts_config: Optional[Dict[str, object]] = None
+                 ) -> None:
+        from .parts import PartTable, default_store_engine
+        self.engine = (engine or default_store_engine()).strip().lower()
+        if self.engine not in ("flat", "parts"):
+            raise ValueError(
+                f"unknown store engine {self.engine!r} "
+                f"(THEIA_STORE_ENGINE): expected flat|parts")
+        if self.engine == "parts":
+            cfg = dict(parts_config or {})
+            if parts_dir is None and "directory" not in cfg:
+                # env fallback for a directly-constructed single
+                # store; sharded/replicated wrappers resolve the env
+                # themselves and pass per-shard/per-replica subdirs
+                parts_dir = os.environ.get("THEIA_STORE_COLD_DIR") \
+                    or None
+            if parts_dir is not None:
+                cfg.setdefault("directory", parts_dir)
+            self.flows: Table = PartTable("flows", FLOW_SCHEMA, **cfg)
+            # Serializes (flows insert + view fan-out) against the
+            # parts-aware snapshot: the snapshot persists VIEW
+            # aggregates (flat rebuilds them from rows at load), so
+            # the capture must not land between a flows append and
+            # its view apply — a row ≤ the stamp would then be
+            # missing from the recovered views forever.
+            from .wal import _Latch
+            self._ingest_latch: Optional[object] = _Latch(
+                "store.ingest_latch")
+        else:
+            self.flows = Table("flows", FLOW_SCHEMA)
+            self._ingest_latch = None
+        self.result_tables: Dict[str, Table] = {
+            name: (self._make_metrics_table()
+                   if name == METRICS_TABLE else Table(name, schema))
+            for name, schema in RESULT_TABLE_SCHEMAS}
+        self.tadetector = self.result_tables["tadetector"]
+        self.recommendations = self.result_tables["recommendations"]
+        self.dropdetection = self.result_tables["dropdetection"]
+        self.flowpatterns = self.result_tables["flowpatterns"]
+        self.spatialnoise = self.result_tables["spatialnoise"]
+        self.views: Dict[str, ViewTable] = {
+            name: ViewTable(name, spec, self.flows.dicts)
+            for name, spec in MATERIALIZED_VIEWS.items()}
+        # Streaming rollup views (query/rollup.py): declarative
+        # aggregate views maintained incrementally per insert block
+        # into parts-backed `__rollup__:<view>` tables. Deliberately
+        # OUTSIDE result_tables: rollup state is derived from the
+        # journaled flows rows (the WAL-invisible PR-13 contract), so
+        # it must not get a WAL hook — replaying flows records
+        # re-derives it through this same insert path. Lazy import:
+        # the query package is a read-plane consumer of this module.
+        from ..query.rollup import RollupManager
+        self.rollups = RollupManager(self)
+        self.ttl_seconds = ttl_seconds
+        #: attached WriteAheadLog (None = snapshot-only durability)
+        self._wal = None
+        #: per-log WAL stamps read from the loaded snapshot (empty =
+        #: fresh store or pre-WAL snapshot); attach_wal replays above
+        #: these
+        self._snapshot_lsns: List[int] = []
+        #: (stream, seq, rows) dedup tags recovered from replayed WAL
+        #: records — the ingest layer seeds its dedup window from
+        #: these so a producer retrying across a crash stays
+        #: exactly-once
+        self._recovered_acks: List[tuple] = []
+
+    @staticmethod
+    def _make_metrics_table():
+        """The `__metrics__` history table: parts-backed REGARDLESS of
+        the flows engine (sealed sorted parts are what make windowed
+        history queries prune and the downsampler's tier surgery
+        atomic), memory-resident (no directory — durability rides the
+        WAL + snapshot like every result table), sorted
+        time,metric,labels with `resolution` in the per-part min/max
+        so rollup tiers prune and EXPLAIN can name them."""
+        from .parts import PartTable
+        return PartTable(
+            METRICS_TABLE, METRICS_SCHEMA,
+            sort_key=("timeInserted", "metric", "labels"),
+            time_column="timeInserted",
+            prune_columns=("timeInserted", "resolution"))
+
+    # -- ingest ------------------------------------------------------------
+
+    def insert_flows(self, batch: ColumnarBatch,
+                     now: Optional[int] = None,
+                     dedup: Optional[tuple] = None,
+                     wire: Optional[memoryview] = None) -> int:
+        """Insert a flow batch; fan out to materialized views; evict
+        TTL. `dedup=(stream, seq)` journals the producer's batch
+        identity with the rows; `wire` (a received TBLK column
+        section for exactly these rows) makes the WAL journal the
+        producer's bytes verbatim (see Table.insert)."""
+        latch = self._ingest_latch
+        with (latch.read() if latch is not None
+              else contextlib.nullcontext()):
+            return self._insert_flows_inner(batch, now, dedup, wire)
+
+    def _insert_flows_inner(self, batch: ColumnarBatch,
+                            now: Optional[int],
+                            dedup: Optional[tuple],
+                            wire: Optional[memoryview] = None) -> int:
+        # fires once per PHYSICAL store: once per replica in a
+        # replicated fan-out, once per resync re-insert
+        _fire_fault("store.insert", table="flows")
+        adopted = self.flows.insert(batch, dedup=dedup, wire=wire)
+        if adopted is None:
+            return 0
+        # Views consume the adopted (store-coded) batch so their group
+        # keys share the store dictionaries. The three aggregations are
+        # independent and the native group-sum releases the GIL, so fan
+        # out in parallel for large blocks (ClickHouse runs MV pipelines
+        # per insert block concurrently too).
+        views = list(self.views.values())
+        t_mv = time.perf_counter()
+        if (len(adopted) >= 16384 and len(views) > 1
+                and (os.cpu_count() or 1) > 2):
+            # Parallel only where cores exist (TPU hosts); on small
+            # boxes the three aggregations just fight over one core.
+            list(_view_pool().map(
+                lambda v: v.apply_insert_block(adopted), views))
+        else:
+            for view in views:
+                view.apply_insert_block(adopted)
+        _M_MV_FANOUT.observe(time.perf_counter() - t_mv)
+        rollups = getattr(self, "rollups", None)
+        if rollups is not None and rollups.active:
+            # rollup views fold the same adopted block (and recovery
+            # replays reach here too, re-deriving identical state)
+            rollups.apply_insert_block(adopted)
+        _M_INS_ROWS.inc(len(adopted))
+        _M_INS_BYTES.inc(sum(a.nbytes
+                             for a in adopted.columns.values()))
+        if self.ttl_seconds is not None:
+            now = int(now if now is not None
+                      else np.max(adopted["timeInserted"]))
+            self.evict_ttl(now)
+        return len(adopted)
+
+    def insert_flow_rows(self, rows, now: Optional[int] = None) -> int:
+        return self.insert_flows(
+            ColumnarBatch.from_rows(rows, FLOW_SCHEMA, self.flows.dicts),
+            now=now)
+
+    @property
+    def rows_inserted_total(self) -> int:
+        """Cumulative flow rows ever inserted (monotone — deletes do
+        not decrease it); the insert-rate substrate."""
+        return self.flows.rows_inserted_total
+
+    @property
+    def bytes_inserted_total(self) -> int:
+        return self.flows.bytes_inserted_total
+
+    # -- storage engine ----------------------------------------------------
+
+    def store_stats(self) -> Dict[str, object]:
+        """Engine + tier summary for /healthz `store` and the parts
+        gauges on /metrics."""
+        doc: Dict[str, object] = {
+            "engine": self.engine,
+            "flowRows": len(self.flows),
+            "flowBytes": self.flows.nbytes,
+        }
+        ps = getattr(self.flows, "parts_stats", None)
+        if callable(ps):
+            doc["parts"] = ps()
+        return doc
+
+    def demote_cold(self, target_bytes: int) -> int:
+        """Demote the oldest hot parts to the cold (disk) tier until
+        resident flow bytes fall to `target_bytes` (0 on the flat
+        engine, which has no tiering). The retention monitor's
+        delete-avoidance step."""
+        fn = getattr(self.flows, "demote_oldest", None)
+        return int(fn(target_bytes)) if callable(fn) else 0
+
+    def maintenance_tick(self) -> int:
+        """One background-compaction pass over the flows table (parts
+        engine; 0 merges on flat) plus rollup-view maintenance
+        (config hot reload, tier downsampling cascade, rollup-part
+        compaction — the rollup tables are parts-backed regardless of
+        the flows engine). Driven by PartMaintenanceLoop."""
+        fn = getattr(self.flows, "maintain", None)
+        merges = int(fn()) if callable(fn) else 0
+        rollups = getattr(self, "rollups", None)
+        if rollups is not None and rollups.active:
+            merges += rollups.maintain()
+        return merges
+
+    # -- write-ahead log ---------------------------------------------------
+
+    def attach_wal(self, wal_dir: str, sync: Optional[str] = None,
+                   segment_bytes: Optional[int] = None
+                   ) -> Dict[str, object]:
+        """Recover from and then journal into a WAL at `wal_dir`:
+        replay surviving records above the loaded snapshot's stamp,
+        open the append side, install the insert-path hooks, and adopt
+        any log content left by a different store topology. Returns
+        the replay stats."""
+        stamps = self._snapshot_lsns
+        stats = self._attach_wal_at(
+            wal_dir, stamps[0] if stamps else 0, sync, segment_bytes)
+        from .wal import adopt_foreign_wal_dirs
+        adopted = adopt_foreign_wal_dirs(self, wal_dir, [wal_dir],
+                                         stamps)
+        if adopted:
+            stats["adoptedRows"] = adopted
+        return stats
+
+    def _attach_wal_at(self, wal_dir: str, stamp: int,
+                       sync: Optional[str] = None,
+                       segment_bytes: Optional[int] = None
+                       ) -> Dict[str, object]:
+        """Core attach (no foreign-topology scan): replay → open →
+        hook. Split out so ShardedFlowDatabase can attach one log per
+        shard with per-shard stamps."""
+        from .wal import WriteAheadLog, orphan_segments
+        if self._wal is not None:
+            raise RuntimeError("WAL already attached")
+        if stamp <= 0 and (len(self.flows) or any(
+                len(t) for t in self.result_tables.values())):
+            # Lineage break: this store holds rows from a snapshot
+            # that carries NO WAL stamp (saved by a run with the WAL
+            # off), yet segments survive here. No LSN can partition
+            # those records into in-snapshot vs to-replay — replaying
+            # them would duplicate rows — so quarantine them for the
+            # operator instead.
+            orphaned = orphan_segments(wal_dir)
+            if orphaned:
+                _logger.error(
+                    "WAL %s: %d segments predate an UNSTAMPED "
+                    "snapshot (a run without --wal-dir saved over a "
+                    "journaled store); renamed to *.orphaned instead "
+                    "of replaying them into rows the snapshot may "
+                    "already hold", wal_dir, len(orphaned))
+        wal = WriteAheadLog(wal_dir, sync=sync,
+                            segment_bytes=segment_bytes)
+        stats = wal.replay(self._replay_record, above_lsn=stamp)
+        wal.open(min_next_lsn=stamp + 1)
+        self._wal = wal
+        for t in (self.flows, *self.result_tables.values()):
+            t._wal_hook = wal.logged_apply
+        return stats
+
+    def _replay_record(self, table: str, batch) -> None:
+        """Apply one recovered WAL record. Runs before the hooks are
+        installed, so nothing re-journals; flows go through the full
+        insert path (views, TTL) exactly like live ingest. A dedup tag
+        in the record's table field restores the producer's ack to
+        `_recovered_acks` — rows and idempotency recover together."""
+        from .wal import split_dedup_tag
+        table, tag = split_dedup_tag(table)
+        if tag is not None:
+            self._recovered_acks.append((tag[0], tag[1], len(batch),
+                                         tag[2]))
+        if table == "flows":
+            self.insert_flows(batch)
+        elif table in self.result_tables:
+            self.result_tables[table].insert(batch)
+        else:
+            _logger.error("WAL record for unknown table %r dropped "
+                          "(%d rows)", table, len(batch))
+
+    def note_recovered_ack(self, stream: str, seq: int, rows: int,
+                           total: Optional[int] = None) -> None:
+        """Record an acknowledged (stream, seq) recovered outside the
+        normal replay path (foreign-topology WAL adoption)."""
+        self._recovered_acks.append((stream, int(seq), int(rows),
+                                     total))
+
+    def recovered_acks(self) -> List[tuple]:
+        """(stream, seq, recovered_rows, logical_total) tags restored
+        from WAL replay — the ingest layer's dedup-window seed after a
+        crash. recovered_rows < logical_total means part of the batch
+        was not durable at the crash (possible for sharded stores
+        under interval sync — slices fsync independently); the seeder
+        logs that loudly."""
+        return list(self._recovered_acks)
+
+    def wal_lag(self) -> int:
+        """Records appended but not yet fsynced (0 without a WAL) —
+        the admission plane's syncedLsn-lag pressure signal."""
+        wal = self._wal
+        return 0 if wal is None else wal.lag_records
+
+    @contextlib.contextmanager
+    def wal_suspended(self):
+        """Temporarily disable journaling (replica resync re-inserts
+        state that is already durable on the peer — re-logging it
+        would corrupt the LSN sequence)."""
+        tables = (self.flows, *self.result_tables.values())
+        saved = [t._wal_hook for t in tables]
+        for t in tables:
+            t._wal_hook = None
+        try:
+            yield
+        finally:
+            for t, hook in zip(tables, saved):
+                t._wal_hook = hook
+
+    def wal_stats(self) -> Optional[Dict[str, object]]:
+        wal = self._wal
+        return None if wal is None else wal.stats()
+
+    def wal_position(self) -> Optional[int]:
+        """Last appended LSN (None when no WAL attached)."""
+        wal = self._wal
+        return None if wal is None else wal.last_lsn
+
+    def wal_reposition(self, position) -> None:
+        """Jump the log forward to a resync peer's position."""
+        wal = self._wal
+        if wal is not None and position is not None:
+            if isinstance(position, (list, tuple)):
+                position = position[0] if position else 0
+            wal.reposition(int(position))
+
+    def wal_sync(self) -> None:
+        wal = self._wal
+        if wal is not None:
+            wal.sync()
+
+    def wal_gc(self, stamp) -> int:
+        """GC segments wholly covered by a snapshot stamped at
+        `stamp` (the value save() returned)."""
+        wal = self._wal
+        if wal is None or stamp is None:
+            return 0
+        if isinstance(stamp, (list, tuple)):
+            stamp = stamp[0] if stamp else 0
+        return wal.gc_below(int(stamp))
+
+    def close_wal(self) -> None:
+        """Final fsync + detach (part of graceful shutdown)."""
+        wal = self._wal
+        if wal is None:
+            return
+        for t in (self.flows, *self.result_tables.values()):
+            t._wal_hook = None
+        self._wal = None
+        wal.close()
+
+    # -- cluster replication (log shipping; theia_tpu/cluster) -------------
+    #
+    # The cluster tier replicates THIS store by shipping its WAL to
+    # follower nodes and applying the frames verbatim on their side —
+    # every method below requires an attached WAL (--wal-dir) and an
+    # UNWRAPPED FlowDatabase (cross-node replication replaces the
+    # in-process --replicas fan-out; cross-node sharding is the ingest
+    # router's job, replacing --shards).
+
+    def wal_read_frames(self, above_lsn: int,
+                        max_bytes: int = 1 << 20):
+        """(frames, last_lsn, algo) above `above_lsn` — the leader's
+        shipper read. Raises WalShipGap when the follower is beyond
+        frame catch-up (→ resync)."""
+        from .wal import WalError
+        wal = self._wal
+        if wal is None:
+            raise WalError(
+                "cluster replication requires an attached WAL "
+                "(--wal-dir)")
+        return wal.read_frames(above_lsn, max_bytes=max_bytes)
+
+    def wal_handshake(self) -> Dict[str, object]:
+        """This store's log-matching position: the follower reports it
+        on /cluster/ping; the leader verifies it against its own log
+        before streaming (crc mismatch / unknown → resync)."""
+        wal = self._wal
+        if wal is None:
+            return {"lsn": 0, "crc": None}
+        return {"lsn": wal.last_lsn, "crc": wal.last_body_crc}
+
+    def wal_body_crc_at(self, lsn: int):
+        wal = self._wal
+        return None if wal is None else wal.body_crc_at(lsn)
+
+    def apply_replicated_frames(self, data: bytes,
+                                algo: int) -> Dict[str, object]:
+        """Follower-side log shipping: append each shipped frame
+        VERBATIM to this store's own WAL (leader LSNs preserved — the
+        follower's log is a byte-identical continuation, so standard
+        replay recovers it to an exact leader position), then apply the
+        record to memory, per record, under the same durability-first
+        discipline as live ingest. Frames at or below the current
+        position (duplicate ship after a reconnect) are skipped.
+        Returns {"ackedLsn", "rows", "acks"}: `acks` carries the dedup
+        tags seen, so the caller seeds the live dedup window — a
+        producer retrying against this node after a failover collects
+        duplicate:true instead of double-inserting."""
+        from .wal import (WalError, decode_record_body, iter_frames,
+                          split_dedup_tag)
+        wal = self._wal
+        if wal is None:
+            raise WalError(
+                "cluster replication requires an attached WAL "
+                "(--wal-dir)")
+        rows = 0
+        applied = 0
+        acks: List[tuple] = []
+        with self.wal_suspended():
+            for lsn, frame, body in iter_frames(data, algo):
+                if lsn <= wal.last_lsn:
+                    continue
+                table, batch = decode_record_body(bytes(body))
+                table, tag = split_dedup_tag(table)
+                if tag is not None:
+                    acks.append((tag[0], tag[1], len(batch), tag[2]))
+
+                def _apply(table=table, batch=batch):
+                    if table == "flows":
+                        self.insert_flows(batch)
+                    elif table in self.result_tables:
+                        self.result_tables[table].insert(batch)
+                    else:
+                        _logger.error(
+                            "replicated record for unknown table %r "
+                            "dropped (%d rows)", table, len(batch))
+
+                if wal.shipped_apply(lsn, frame, body, algo, _apply):
+                    applied += 1
+                    rows += len(batch)
+        wal.policy_sync()
+        return {"ackedLsn": wal.last_lsn, "rows": rows,
+                "applied": applied, "acks": acks}
+
+    def resync_export(self, chunk_rows: int = 65536):
+        """Leader-side wholesale catch-up capture: (position,
+        position_crc, record-body iterator). Captured under the WAL
+        quiesce latch, so `position` exactly covers the captured rows;
+        the (cheap) ref capture happens inside, the encoding outside.
+        Sealed cold parts ship their file bodies verbatim (PR-7 part
+        manifest catch-up); everything else encodes from scan refs."""
+        from .wal import encode_record_body
+        wal = self._wal
+        ctx = wal.quiesce() if wal is not None \
+            else contextlib.nullcontext()
+        with ctx:
+            position = wal.last_lsn if wal is not None else 0
+            position_crc = wal.last_body_crc if wal is not None else 0
+            flows = self.flows
+            if hasattr(flows, "_snapshot_refs"):
+                flows_cap = flows._snapshot_refs()
+            else:
+                flows_cap = flows.scan()
+            results = {name: t.scan()
+                       for name, t in self.result_tables.items()
+                       if len(t)}
+
+        def records():
+            if isinstance(flows_cap, tuple):
+                parts, mem = flows_cap
+                yield from self.flows.export_encoded_records(
+                    parts, mem, chunk_rows)
+            else:
+                for i in range(0, len(flows_cap), chunk_rows):
+                    idx = np.arange(i, min(i + chunk_rows,
+                                           len(flows_cap)))
+                    yield encode_record_body("flows",
+                                             flows_cap.take(idx))
+            for name, batch in results.items():
+                for i in range(0, len(batch), chunk_rows):
+                    idx = np.arange(i, min(i + chunk_rows, len(batch)))
+                    yield encode_record_body(name, batch.take(idx))
+
+        return position, position_crc, records()
+
+    def resync_apply(self, records, position: int,
+                     position_crc) -> int:
+        """Follower-side wholesale catch-up: truncate, apply each
+        self-contained record body, then RESET the WAL to the leader's
+        position (the old records no longer describe this memory; any
+        divergent tail worth re-ingesting was extracted by the caller
+        first — wal_tail_tagged_records). Until the next checkpoint
+        covers the copied rows, a crash re-runs the resync (loud,
+        correct). Returns rows applied."""
+        from .wal import decode_record_body, split_dedup_tag
+        rows = 0
+        with self.wal_suspended():
+            self.flows.truncate()
+            for view in self.views.values():
+                view.truncate()
+            if self.rollups is not None:
+                # re-derived below: every applied flows record runs
+                # the full insert path, rollup fold included
+                self.rollups.truncate_all()
+            for t in self.result_tables.values():
+                t.truncate()
+            for body in records:
+                table, batch = decode_record_body(bytes(body))
+                table, _tag = split_dedup_tag(table)
+                if table == "flows":
+                    self.insert_flows(batch)
+                elif table in self.result_tables:
+                    self.result_tables[table].insert(batch)
+                else:
+                    _logger.error(
+                        "resync record for unknown table %r dropped "
+                        "(%d rows)", table, len(batch))
+                rows += len(batch)
+        wal = self._wal
+        if wal is not None:
+            wal.reset_to(int(position), position_crc)
+        return rows
+
+    def wal_tail_tagged_records(self, above_lsn: int) -> List[tuple]:
+        """(stream, seq, body) for every DEDUP-TAGGED flows record
+        above `above_lsn` in this store's log — the demoted leader's
+        unacked tail. The rejoining node re-posts these through the
+        new leader's /ingest with their original (stream, seq): batches
+        the cluster already acknowledged resolve duplicate:true via the
+        dedup window; genuinely unreplicated ones land — instead of
+        duplicating or silently dropping the tail. Untagged records
+        (job results, synth seeds) stay at-least-once and are not
+        re-posted."""
+        from .wal import (_SEG_HEADER, _SEG_MAGIC, _SEG_VERSION,
+                          decode_record_body, iter_frames,
+                          split_dedup_tag)
+        wal = self._wal
+        if wal is None:
+            return []
+        out: List[tuple] = []
+        # direct segment walk (not read_frames): checkpoint GC has
+        # usually removed the oldest segments of a long-lived leader,
+        # and the tail that matters is whatever SURVIVES — a gap at
+        # the front must not abort the extraction
+        with wal._io:
+            segs = wal._list_segments()
+        for _first, path in segs:
+            try:
+                with open(path, "rb") as f:
+                    data = f.read()
+            except OSError:
+                continue
+            if len(data) < _SEG_HEADER.size:
+                continue
+            magic, ver, algo, _, _f = _SEG_HEADER.unpack_from(data, 0)
+            if magic != _SEG_MAGIC or ver != _SEG_VERSION:
+                continue
+            for lsn, _frame, body in iter_frames(
+                    data[_SEG_HEADER.size:], algo):
+                if lsn <= above_lsn:
+                    continue
+                body = bytes(body)
+                try:
+                    table, _batch = decode_record_body(body)
+                except Exception:
+                    continue
+                table, tag = split_dedup_tag(table)
+                if table == "flows" and tag is not None:
+                    out.append((tag[0], tag[1], body))
+        return out
+
+    # -- retention ---------------------------------------------------------
+
+    def evict_ttl(self, now: int) -> int:
+        if self.ttl_seconds is None:
+            return 0
+        boundary = now - self.ttl_seconds
+        # Fast path: nothing evictable — min() over parts is O(parts),
+        # not a full-table concat, so steady ingest stays O(batch).
+        oldest = self.flows.min_value("timeInserted")
+        if oldest is None or oldest >= boundary:
+            return 0
+        deleted = self.delete_flows_older_than(boundary)
+        if deleted:
+            _M_DEL_ROWS.labels(reason="ttl").inc(deleted)
+        return deleted
+
+    def delete_flows_older_than(self, boundary: int) -> int:
+        """timeInserted < boundary, applied to flows and every view
+        (monitor main.go:284-293 deletes from table + MVs)."""
+        deleted = self.flows.delete_older_than(boundary)
+        for view in self.views.values():
+            view.delete_older_than(boundary)
+        rollups = getattr(self, "rollups", None)
+        if rollups is not None and rollups.active:
+            # whole buckets below the trim drop with their parts;
+            # boundary-straddling buckets re-derive from the
+            # SURVIVING raw rows so rollup answers track the trim
+            # exactly
+            rollups.apply_delete(boundary)
+        return deleted
+
+    def monitor(self, capacity_bytes: int, **kw) -> RetentionMonitor:
+        return RetentionMonitor(self, capacity_bytes, **kw)
+
+    # -- persistence -------------------------------------------------------
+
+    def save(self, path: str, tables: Optional[Sequence[str]] = None,
+             compress: bool = True) -> Optional[int]:
+        """Persist tables to one .npz (columns + dictionary tables),
+        stamped with the current schema version (store/migration.py).
+
+        `tables` restricts the snapshot (e.g. result tables only for a
+        job's write-back); `compress=False` trades disk for CPU —
+        right for short-lived job snapshots, wrong for durable
+        checkpoints. The write is ATOMIC (temp file + rename) and
+        keeps the previous snapshot as `<path>.prev`: a crash mid-save
+        never tears an existing snapshot, and a later-corrupted
+        primary still has a verified fallback.
+
+        With a WAL attached, a FULL snapshot quiesces appends while it
+        stamps the log position and scans the tables (so the stamp is
+        exact), and returns that stamp — the caller passes it to
+        `wal_gc()` once the snapshot is known durable. Partial
+        (tables=...) snapshots stamp nothing: they are not recovery
+        points.
+
+        Parts engine with a part directory: the sealed parts SUBSUME
+        the bulk of the snapshot. The npz carries only the memtable
+        rows, result tables, dictionaries, and view aggregates; the
+        sealed parts stay on disk behind a generational manifest
+        published atomically (with a `.prev` fallback pair, lag-one
+        with the npz — the PR-4 GC discipline), so a checkpoint costs
+        O(memtable), not O(table), and recovery is manifest load +
+        WAL tail replay."""
+        wal = self._wal
+        flows = self.flows
+        parts_aware = (tables is None
+                       and getattr(flows, "directory", None)
+                       and hasattr(flows, "snapshot_parts_state"))
+        if not parts_aware:
+            if wal is not None and tables is None:
+                with wal.quiesce():
+                    stamp = wal.last_lsn
+                    payload = self._snapshot_payload(tables)
+            else:
+                stamp = None
+                payload = self._snapshot_payload(tables)
+            write_snapshot(
+                path, payload, compress=compress,
+                wal_lsns=[stamp] if stamp is not None else None)
+            return stamp
+        # The ingest latch (writer side) excludes in-flight
+        # insert_flows across BOTH legs (flows append + view apply);
+        # the WAL quiesce additionally freezes result-table appends so
+        # the stamp partitions every table's records exactly.
+        with contextlib.ExitStack() as stack:
+            if self._ingest_latch is not None:
+                stack.enter_context(self._ingest_latch.write())
+            if wal is not None:
+                stack.enter_context(wal.quiesce())
+            stamp = wal.last_lsn if wal is not None else None
+            entries, payload = flows.snapshot_parts_state()
+            for table in self.result_tables.values():
+                data = table.scan()
+                for col in table.schema:
+                    payload[f"{table.name}/{col.name}"] = data[col.name]
+            for table in (flows, *self.result_tables.values()):
+                for name, d in table.dicts.items():
+                    payload[f"{table.name}/__dict__/{name}"] = \
+                        np.asarray(d._strings, dtype=object)
+            for name, view in self.views.items():
+                keys, values = view._merged()
+                payload[f"__view__/{name}/keys"] = keys
+                payload[f"__view__/{name}/values"] = values
+            rollups = getattr(self, "rollups", None)
+            if rollups is not None and rollups.active:
+                # rollup aggregates persist like the view aggregates
+                # (captured under the same latch, so the stamp
+                # partitions flows records exactly); flat snapshots
+                # skip this — their load rebuilds through the insert
+                # path
+                payload.update(rollups.snapshot_payload())
+        gen = flows.publish_manifest(entries, stamp)
+        payload["__parts__/generation"] = np.asarray(gen, np.int64)
+        payload["__parts__/dir"] = np.asarray(
+            os.path.abspath(flows.directory), dtype=object)
+        write_snapshot(path, payload, compress=compress,
+                       wal_lsns=[stamp] if stamp is not None else None)
+        flows.gc_part_files()
+        return stamp
+
+    def _snapshot_payload(self, tables: Optional[Sequence[str]] = None
+                          ) -> Dict[str, np.ndarray]:
+        payload: Dict[str, np.ndarray] = {}
+        for table in (self.flows, *self.result_tables.values()):
+            if tables is not None and table.name not in tables:
+                continue
+            data = table.scan()
+            for col in table.schema:
+                payload[f"{table.name}/{col.name}"] = data[col.name]
+            for name, d in table.dicts.items():
+                payload[f"{table.name}/__dict__/{name}"] = np.asarray(
+                    d._strings, dtype=object)
+        return payload
+
+    @classmethod
+    def load(cls, path: str,
+             ttl_seconds: Optional[int] = None,
+             build_views: bool = True,
+             engine: Optional[str] = None,
+             parts_dir: Optional[str] = None,
+             parts_config: Optional[Dict[str, object]] = None
+             ) -> "FlowDatabase":
+        """Load a persisted database, migrating older schema versions
+        up to current first (the reference's schema-management init
+        container runs before the server the same way).
+
+        build_views=False skips materialized-view fan-out — for callers
+        that immediately re-insert the rows elsewhere (sharded load)
+        and would otherwise pay the O(rows) view build twice.
+
+        A parts-aware snapshot (engine=parts with a part directory)
+        loads as: manifest adoption (parts register LAZILY — metadata
+        resident, columns decoded on first touch) + memtable rows +
+        restored view aggregates. An unloadable manifest generation
+        falls back — loudly, with the snapshot-fallback metric — to
+        the `<path>.prev` snapshot and ITS manifest generation, which
+        the lag-one part/WAL GC keeps recoverable."""
+        from .parts import PartsManifestError
+        payload = read_snapshot(path)
+        try:
+            return cls._from_payload(payload, ttl_seconds, build_views,
+                                     engine, parts_dir, parts_config)
+        except PartsManifestError as e:
+            prev = path + ".prev"
+            if not os.path.exists(prev):
+                raise
+            _logger.error(
+                "snapshot %s pairs with an unloadable part manifest "
+                "(%s) — falling back to previous snapshot %s",
+                path, e, prev)
+            _M_SNAP_FALLBACK.inc()
+            payload = read_snapshot(prev)
+            return cls._from_payload(payload, ttl_seconds, build_views,
+                                     engine, parts_dir, parts_config)
+
+    @classmethod
+    def _from_payload(cls, payload: Dict[str, np.ndarray],
+                      ttl_seconds: Optional[int],
+                      build_views: bool,
+                      engine: Optional[str],
+                      parts_dir: Optional[str],
+                      parts_config: Optional[Dict[str, object]]
+                      ) -> "FlowDatabase":
+        from .migration import migrate
+        from .parts import PartTable
+        parts_gen = payload.get("__parts__/generation")
+        if parts_gen is not None and parts_dir is None and \
+                "__parts__/dir" in payload:
+            # The snapshot records the EXACT directory its manifest
+            # generation lives in — a replica/shard subdir, not the
+            # THEIA_STORE_COLD_DIR base — so the recorded path beats
+            # the env var here (a replicated restart with the env set
+            # would otherwise look for manifest.json one level up and
+            # fail). Callers relocating data pass parts_dir
+            # explicitly.
+            parts_dir = str(np.asarray(
+                payload["__parts__/dir"]).item())
+        if parts_gen is not None and engine is None and \
+                not os.environ.get("THEIA_STORE_ENGINE"):
+            # a parts-aware snapshot self-describes its engine when
+            # neither the caller nor the environment says otherwise
+            engine = "parts"
+        db = cls(ttl_seconds=None, engine=engine, parts_dir=parts_dir,
+                 parts_config=parts_config)
+        if WAL_LSNS_KEY in payload:
+            db._snapshot_lsns = [
+                int(v) for v in np.asarray(payload[WAL_LSNS_KEY])]
+        migrate(payload)
+        if parts_gen is not None and \
+                not isinstance(db.flows, PartTable):
+            # Cross-engine load (parts snapshot → flat store, the
+            # engine-flip escape hatch): materialize through a donor
+            # parts database, then feed the rows down the flat path.
+            donor = cls._from_payload(payload, None, False, "parts",
+                                      parts_dir, parts_config)
+            flows = donor.flows.scan()
+            if len(flows):
+                if build_views:
+                    db.insert_flows(flows)
+                else:
+                    db.flows.insert(flows)
+            for name, src in donor.result_tables.items():
+                data = src.scan()
+                if len(data):
+                    db.result_tables[name].insert(data)
+            db.ttl_seconds = ttl_seconds
+            return db
+        for table in (db.flows, *db.result_tables.values()):
+            cols: Dict[str, np.ndarray] = {}
+            for name, d in table.dicts.items():
+                key = f"{table.name}/__dict__/{name}"
+                if key in payload:
+                    for s in payload[key]:
+                        d.encode_one(str(s))
+            for col in table.schema:
+                key = f"{table.name}/{col.name}"
+                if key in payload:
+                    cols[col.name] = payload[key]
+            if table is db.flows and parts_gen is not None:
+                # manifest parts first (insertion order), then the
+                # npz-carried memtable tail — no seal, no view work
+                # (views restore below); raises PartsManifestError
+                # for the caller's .prev fallback
+                db.flows.load_manifest(int(np.asarray(parts_gen)))
+                if cols and len(next(iter(cols.values()))):
+                    n = len(next(iter(cols.values())))
+                    batch = ColumnarBatch(
+                        {c.name: cols.get(c.name, np.zeros(
+                            n, c.host_dtype)) for c in table.schema},
+                        table.dicts)
+                    db.flows._append_adopted(batch, seal=False)
+                continue
+            if cols and len(next(iter(cols.values()))):
+                batch = ColumnarBatch(
+                    {c.name: cols.get(c.name, np.zeros(
+                        len(next(iter(cols.values()))), c.host_dtype))
+                     for c in table.schema}, table.dicts)
+                if table is db.flows and build_views:
+                    db.insert_flows(batch)
+                else:
+                    table.insert(batch)
+        if parts_gen is not None and build_views:
+            restored = 0
+            for name, view in db.views.items():
+                kk = f"__view__/{name}/keys"
+                vk = f"__view__/{name}/values"
+                if kk in payload and vk in payload:
+                    view.restore(payload[kk], payload[vk])
+                    restored += 1
+            if restored < len(db.views) and len(db.flows):
+                # older/partial parts snapshot without view payloads:
+                # rebuild the aggregates from the rows (the flat-load
+                # discipline — decodes every part once)
+                data = db.flows.scan()
+                for view in db.views.values():
+                    view.truncate()
+                    view.apply_insert_block(data)
+            if db.rollups.active:
+                # rollup aggregates: restore views whose persisted
+                # definition still matches; rebuild the rest from the
+                # loaded flows (definition drift / older snapshot)
+                db.rollups.restore_or_rebuild(payload)
+        db.ttl_seconds = ttl_seconds
+        return db

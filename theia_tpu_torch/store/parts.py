@@ -1,0 +1,2066 @@
+"""Part-based columnar storage engine — sealed compressed parts,
+pruned scans, background compaction, tiered retention.
+
+The flat `Table` (flow_store.py) keeps every resident row at raw coded
+width (~284 B/row for the 52-column flow schema) and `scan()`/`select()`
+touch all of it. This module re-provides the table surface MergeTree-
+style (the reference's ClickHouse storage layer): ingest appends to a
+small mutable MEMTABLE that seals into immutable, time-partitioned
+column PARTS using the WAL record encoding promoted to a storage
+format — dictionary strings + width-reduced/delta ints, ~88 B/row vs
+284 raw (store/wal.py measured it first) — so month-scale retention
+fits bounded RAM.
+
+Engine selection: `THEIA_STORE_ENGINE=parts|flat` (default `flat`,
+same parity-gate-before-flip playbook as PR 6's
+THEIA_DETECTOR_ENGINE). The parts engine is surface-identical to the
+flat table: `scan()`/`select()` return byte-identical results
+(tests/test_parts.py gates it under randomized inserts + deletes +
+TTL + merges + recovery).
+
+Layout:
+
+  * In memory, a sealed part holds one chunk per column in TABLE-
+    GLOBAL code space: numeric columns width-reduced against a
+    per-part base (wal.width_reduce), string columns as the part's
+    unique global dictionary codes + narrow local indices. Decoding a
+    hot part back to a ColumnarBatch is pure integer work — no string
+    re-encoding — so codes are byte-identical to the flat engine's.
+  * On disk (when a part directory is configured), each part is one
+    SELF-CONTAINED file: a checksummed header + the exact WAL record
+    body (wal.encode_record_parts — unique strings shipped, so the
+    file replays into any dictionary state, like a WAL record does).
+  * Each part carries min/max metadata for the pruning columns
+    (`timeInserted`, `flowStartSeconds`, `flowEndSeconds`), so
+    `select(start_time, end_time)` decodes only overlapping parts —
+    the MergeTree primary-index skip — and retention boundary
+    selection is O(parts), not O(n log n).
+  * A background merge loop (PartMaintenanceLoop, supervised with the
+    shared capped_backoff schedule) compacts adjacent small parts of
+    the same time partition into larger ones.
+  * Retention DEMOTES cold parts to the disk tier (resident chunks
+    freed; the self-contained file is decoded on demand) before any
+    row is deleted — the in-DRAM active-flows working-set split
+    (arXiv:1902.04143): hot set resident, long tail spilled.
+  * Recovery = load the part MANIFEST (atomic, generational,
+    `.prev` fallback like the snapshot) + the memtable rows from the
+    npz snapshot + replay the short WAL tail above the snapshot
+    stamp. Parts subsume the bulk of the snapshot, load lazily, and
+    are the part-shipping foundation for replication (ROADMAP item 1).
+
+Sort order + indexes (PR 12, the rest of the MergeTree read design):
+
+  * Parts seal and merge SORTED by a configurable primary key
+    (`THEIA_STORE_SORT_KEY`, default timeInserted,destinationIP,
+    sourceIP — the reference's ClickHouse ORDER BY; string columns
+    cluster by dictionary code, which groups identical values exactly
+    even though the order is code-allocation order, not lexicographic).
+  * Every sorted part carries an explicit ROW-ID column — the sort
+    permutation (`sorted_row[i]` was insertion row `rowid[i]`) — so
+    the insertion-order contract SURVIVES sorting: `scan()`/`select()`
+    un-permute on decode (byte-identical flat parity holds unchanged)
+    and positional delete masks resolve through the row-id.
+  * Each sorted part keeps a SPARSE PRIMARY INDEX + per-granule SKIP
+    INDEXES (`THEIA_STORE_GRANULE_ROWS`, default 8192): min/max zone
+    maps on every column (the sort-key prefix's zone map IS the
+    binary-searchable sparse index, since the column is sorted) and
+    bounded set indexes of distinct dictionary codes on string
+    columns. The query engine prunes at granule granularity INSIDE
+    parts — predicates decide granules from resident metadata before
+    any row is gathered (query/engine.py).
+  * Runs of sorted parts merge with a K-WAY STREAMING merge (already-
+    ordered runs concatenate; overlapping runs pay one stable key
+    sort over the sort-key columns only) instead of concat+re-encode,
+    and background maintenance UPGRADES pre-PR-12 unsorted parts
+    (format v1) to sorted+indexed v2 in place.
+  * The part format version is stamped per part in the manifest:
+    v1 parts adopt lazily (scanned, never granule-pruned) so old
+    stores load unchanged and converge via merges/upgrades.
+
+Env knobs (all also constructor-injectable for tests):
+
+    THEIA_STORE_ENGINE             parts|flat (default flat)
+    THEIA_STORE_MEMTABLE_ROWS      memtable rows before a seal (65536)
+    THEIA_STORE_PART_ROWS          merge target part size (262144)
+    THEIA_STORE_PARTITION_SECONDS  time partition width (3600)
+    THEIA_STORE_SORT_KEY           part primary key, comma-separated
+                                   columns (default timeInserted,
+                                   destinationIP,sourceIP; empty
+                                   disables sorting → v1 parts)
+    THEIA_STORE_GRANULE_ROWS       rows per index granule (8192)
+    THEIA_STORE_COLD_DIR           part/manifest directory (manager
+                                   default: <db path>.parts)
+    THEIA_STORE_MERGE_INTERVAL     background merge cadence (5s;
+                                   <=0 disables the loop)
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import json
+import os
+import struct
+import threading
+import uuid
+import zlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..obs import metrics as _metrics
+from ..schema import ColumnarBatch
+from ..utils.backoff import capped_backoff
+from ..utils.env import env_float, env_int
+from ..utils.logging import get_logger
+from . import wal as _wal
+from .flow_store import Table
+from ..analysis.lockdep import named_lock
+
+logger = get_logger("parts")
+
+#: columns carrying per-part min/max pruning metadata (intersected
+#: with the table schema; `timeInserted` drives retention/TTL,
+#: flowStart/flowEnd drive the jobs' `select(start, end)` windows)
+PRUNE_COLUMNS = ("timeInserted", "flowStartSeconds", "flowEndSeconds")
+
+DEFAULT_MEMTABLE_ROWS = 65536
+DEFAULT_PART_ROWS = 262144
+DEFAULT_PARTITION_SECONDS = 3600
+#: degenerate-interleaving guard: a seal never cuts more than this
+#: many partition runs (heavily out-of-order data seals as one part;
+#: min/max pruning stays correct, just less selective)
+MAX_PARTS_PER_SEAL = 32
+
+#: the ClickHouse-ORDER-BY equivalent: parts sort by these columns
+#: (string columns by dictionary code — identical values still
+#: cluster exactly)
+DEFAULT_SORT_KEY = "timeInserted,destinationIP,sourceIP"
+DEFAULT_GRANULE_ROWS = 8192
+#: a granule's string set index is dropped (None = "no proof") once
+#: its distinct-code count exceeds this — the ClickHouse set(N) cap
+SET_INDEX_MAX = 128
+#: v1 parts rewritten sorted+indexed per maintenance pass (bounds the
+#: one-time upgrade cost of a large pre-PR-12 store per pass)
+UPGRADES_PER_PASS = 4
+
+#: part format versions (stamped per part in the manifest AND in the
+#: part-file header): v1 = insertion order, no row-id, no indexes
+#: (pre-PR-12); v2 = sorted by the part's sort key, carries the
+#: __rowid__ permutation column, granule-indexed
+PART_FORMAT_UNSORTED = 1
+PART_FORMAT_SORTED = 2
+
+MANIFEST_NAME = "manifest.json"
+
+_PART_MAGIC = b"TPRT"
+_PART_VERSION = PART_FORMAT_UNSORTED
+_PART_VERSIONS = (PART_FORMAT_UNSORTED, PART_FORMAT_SORTED)
+#: magic, version, crc algo, reserved, body crc, body length
+_PART_HEADER = struct.Struct("<4sBBHIQ")
+
+_M_SEALED = _metrics.counter(
+    "theia_store_parts_sealed_total",
+    "Memtable seals into immutable column parts")
+_M_MERGES = _metrics.counter(
+    "theia_store_merges_total",
+    "Background compactions of adjacent small parts into larger ones")
+_M_PRUNED = _metrics.counter(
+    "theia_store_parts_pruned_total",
+    "Parts skipped by select() min/max pruning (read with "
+    "theia_store_parts_scanned_total for the prune ratio)")
+_M_SCANNED = _metrics.counter(
+    "theia_store_parts_scanned_total",
+    "Parts decoded by scan()/select() after pruning")
+_M_DEMOTED = _metrics.counter(
+    "theia_store_parts_demoted_total",
+    "Hot parts demoted to the cold (disk) tier by retention")
+_M_UPGRADED = _metrics.counter(
+    "theia_store_parts_upgraded_total",
+    "Pre-PR-12 unsorted (format v1) parts rewritten sorted+indexed "
+    "(format v2) by background maintenance")
+
+
+class PartsError(Exception):
+    """A part file or manifest failed structural/integrity checks."""
+
+
+class PartsManifestError(PartsError):
+    """The manifest generation paired with a snapshot is unloadable —
+    the caller falls back to the previous snapshot generation."""
+
+
+STORE_ENGINES = ("flat", "parts")
+
+
+def default_store_engine() -> str:
+    """THEIA_STORE_ENGINE, validated; `flat` until the parity gate
+    flips the default (the THEIA_DETECTOR_ENGINE playbook)."""
+    name = os.environ.get("THEIA_STORE_ENGINE", "").strip().lower()
+    if not name:
+        return "flat"
+    if name not in STORE_ENGINES:
+        raise ValueError(
+            f"unknown store engine {name!r} (THEIA_STORE_ENGINE): "
+            f"expected one of {STORE_ENGINES}")
+    return name
+
+
+def default_sort_key() -> Tuple[str, ...]:
+    """THEIA_STORE_SORT_KEY parsed to a column tuple. An EMPTY value
+    disables sorting entirely (parts seal in insertion order, format
+    v1 — the pre-PR-12 behavior, kept reachable for cross-version
+    tests and as the escape hatch)."""
+    raw = os.environ.get("THEIA_STORE_SORT_KEY")
+    if raw is None:
+        raw = DEFAULT_SORT_KEY
+    return tuple(c.strip() for c in raw.split(",") if c.strip())
+
+
+# -- sparse primary index + per-granule skip indexes -----------------------
+
+def _inverse_permutation(rowid: np.ndarray) -> np.ndarray:
+    """inv with inv[rowid[i]] = i: `sorted.take(inv)` restores
+    insertion order — the decode side of the row-id contract."""
+    rid = np.asarray(rowid, np.int64)
+    inv = np.empty(len(rid), np.int64)
+    inv[rid] = np.arange(len(rid), dtype=np.int64)
+    return inv
+
+
+class PartIndexes:
+    """Resident index metadata for one SORTED part (~0.2 B/row):
+
+    * `starts` — row offset of each granule (every Nth row); with the
+      sort order, the sort-key prefix's zone map is the MergeTree
+      sparse primary index (granule g's key range is exactly
+      [zone min, zone max], binary-searchable because ascending).
+    * `zones` — per-granule (mins, maxs) for EVERY column: numeric
+      columns over values, string columns over dictionary codes (only
+      meaningful for pruning on the sort-key prefix, where codes are
+      clustered; harmless elsewhere).
+    * `sets` — per-granule sorted distinct dictionary codes for string
+      columns, or None once a granule exceeds SET_INDEX_MAX distinct
+      values (no proof → scanned).
+
+    Survives demotion (indexes stay resident when chunks spill) but
+    not recovery: a manifest-adopted part starts with indexes=None —
+    scanned, not granule-pruned — and rebuilds them on hot promotion
+    or upgrade, the same laziness as the chunks themselves."""
+
+    __slots__ = ("granule", "rows", "starts", "zones", "sets")
+
+    def __init__(self, granule: int, rows: int, starts: np.ndarray,
+                 zones: Dict[str, Tuple[np.ndarray, np.ndarray]],
+                 sets: Dict[str, List[Optional[np.ndarray]]]) -> None:
+        self.granule = granule
+        self.rows = rows
+        self.starts = starts
+        self.zones = zones
+        self.sets = sets
+
+    @property
+    def n_granules(self) -> int:
+        return len(self.starts)
+
+    def granule_ends(self) -> np.ndarray:
+        return np.append(self.starts[1:], self.rows)
+
+    @property
+    def nbytes(self) -> int:
+        n = self.starts.nbytes
+        for mins, maxs in self.zones.values():
+            n += mins.nbytes + maxs.nbytes
+        for per in self.sets.values():
+            n += sum(s.nbytes for s in per if s is not None)
+        return n
+
+
+def build_part_indexes(schema, batch: ColumnarBatch, granule: int,
+                       sort_key: Sequence[str]) -> PartIndexes:
+    """Index one SORTED batch: one reduceat pass per column for the
+    zone maps, one bounded np.unique per (granule, string column) for
+    the set indexes."""
+    n = len(batch)
+    granule = max(1, int(granule))
+    starts = np.arange(0, n, granule, dtype=np.int64)
+    ends = np.minimum(starts + granule, n)
+    zones: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    sets: Dict[str, List[Optional[np.ndarray]]] = {}
+    for col in schema:
+        arr = np.ascontiguousarray(batch[col.name])
+        zones[col.name] = (np.minimum.reduceat(arr, starts),
+                           np.maximum.reduceat(arr, starts))
+        if col.is_string:
+            per: List[Optional[np.ndarray]] = []
+            for s, e in zip(starts, ends):
+                u = np.unique(arr[s:e])
+                per.append(u.astype(np.int32)
+                           if len(u) <= SET_INDEX_MAX else None)
+            sets[col.name] = per
+    return PartIndexes(granule, n, starts, zones, sets)
+
+
+def kway_merge_order(runs: Sequence[Sequence[np.ndarray]]
+                     ) -> Optional[np.ndarray]:
+    """Merge order for K individually-sorted runs of multi-column keys
+    (each run a list of per-column arrays, primary column first) over
+    their CONCATENATION. Returns None when the runs are already
+    globally ordered end-to-end (the common case for time-ordered
+    ingest: adjacent parts hold disjoint key ranges — the merge is a
+    concat); otherwise one stable lexsort over the key columns only.
+    Stability makes the result identical to sorting the insertion-
+    order concatenation: within a run equal keys are already in
+    insertion order, and runs concatenate in insertion order."""
+    runs = [r for r in runs if len(r) and len(r[0])]
+    if len(runs) <= 1:
+        return None
+    ordered = True
+    for a, b in zip(runs, runs[1:]):
+        last = tuple(c[-1] for c in a)
+        first = tuple(c[0] for c in b)
+        if last > first:
+            ordered = False
+            break
+    if ordered:
+        return None
+    cols = [np.concatenate([r[j] for r in runs])
+            for j in range(len(runs[0]))]
+    return np.lexsort(tuple(reversed(cols)))
+
+
+# -- column chunks (in-RAM encoded representation) -------------------------
+
+class _NumChunk:
+    """Width-reduced numeric column: stored (narrow) + base offset."""
+
+    __slots__ = ("stored", "base", "dtype")
+
+    def __init__(self, stored: np.ndarray, base: int, dtype) -> None:
+        self.stored = stored
+        self.base = base
+        self.dtype = np.dtype(dtype)
+
+    @property
+    def nbytes(self) -> int:
+        return self.stored.nbytes
+
+    def decode(self) -> np.ndarray:
+        if self.stored.dtype == self.dtype and not self.base:
+            return self.stored
+        arr = self.stored.astype(self.dtype)
+        if self.base:
+            arr += self.dtype.type(self.base)
+        return arr
+
+
+class _StrChunk:
+    """Dictionary column in table-global code space: the part's unique
+    global codes + narrow local indices. Decoding is one gather — no
+    string work, so codes match the flat engine byte for byte."""
+
+    __slots__ = ("uniq", "local")
+
+    def __init__(self, uniq: np.ndarray, local: np.ndarray) -> None:
+        self.uniq = uniq      # int32 global codes, ascending
+        self.local = local    # u1/u2/int32 indices into uniq
+
+    @property
+    def nbytes(self) -> int:
+        return self.uniq.nbytes + self.local.nbytes
+
+    def decode(self) -> np.ndarray:
+        if not len(self.uniq):
+            return np.zeros(len(self.local), np.int32)
+        return self.uniq[self.local.astype(np.int64)]
+
+
+def _encode_chunks(schema, dicts, batch: ColumnarBatch
+                   ) -> Dict[str, object]:
+    """Seal one adopted (table-coded) batch into per-column chunks."""
+    chunks: Dict[str, object] = {}
+    for col in schema:
+        arr = np.ascontiguousarray(batch[col.name])
+        if col.is_string:
+            codes = np.asarray(arr, np.int32)
+            d = dicts[col.name]
+            # O(n + dict) unique via occupancy mask (codes are dense
+            # dictionary indices) — the WAL encoder's trick
+            mask = np.zeros(len(d), bool)
+            mask[codes] = True
+            uniq = np.flatnonzero(mask).astype(np.int32)
+            remap = np.cumsum(mask, dtype=np.int32) - 1
+            local = remap[codes]
+            if len(uniq) <= 0xFF:
+                local = local.astype("<u1")
+            elif len(uniq) <= 0xFFFF:
+                local = local.astype("<u2")
+            chunks[col.name] = _StrChunk(uniq, local)
+        else:
+            stored, base = _wal.width_reduce(arr)
+            chunks[col.name] = _NumChunk(stored, base, col.host_dtype)
+    return chunks
+
+
+# -- part files (self-contained on-disk representation) --------------------
+
+def write_part_file(path: str, table: str, batch: ColumnarBatch,
+                    version: int = _PART_VERSION) -> int:
+    """Write one part as a checksummed, SELF-CONTAINED file: header +
+    the exact WAL record body (unique strings shipped), so the file
+    decodes into any dictionary state — the property that makes parts
+    shippable to replicas and reloadable across restarts. `version`
+    stamps the part format (v2 = sorted rows + the __rowid__
+    permutation column riding the record encoding as an ordinary
+    numeric column — the body codec is unchanged). Buffered write;
+    durability is the caller's (fsync at manifest publish — until
+    then the WAL covers the rows). Returns bytes written."""
+    parts = _wal.encode_record_parts(table, batch)
+    body_len = sum(len(p) for p in parts)
+    crc = 0
+    for p in parts:
+        crc = _wal._write_crc(p, crc)
+    crc &= 0xFFFFFFFF
+    with open(path, "wb") as f:
+        f.write(_PART_HEADER.pack(_PART_MAGIC, version,
+                                  _wal._WRITE_ALGO, 0, crc, body_len))
+        for p in parts:
+            f.write(p)
+    return _PART_HEADER.size + body_len
+
+
+def read_part_body(path: str) -> bytes:
+    """The verified raw record BODY of a part file — already the exact
+    self-contained WAL record encoding (write_part_file's contract), so
+    cluster resync ships sealed cold parts without decoding a row."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError as e:
+        raise PartsError(f"part {path} unreadable: {e}")
+    if len(data) < _PART_HEADER.size:
+        raise PartsError(f"part {path}: short header")
+    magic, ver, algo, _, crc, body_len = _PART_HEADER.unpack_from(
+        data, 0)
+    if magic != _PART_MAGIC or ver not in _PART_VERSIONS:
+        raise PartsError(f"part {path}: bad magic/version")
+    body = data[_PART_HEADER.size:]
+    if len(body) != body_len:
+        raise PartsError(
+            f"part {path}: body is {len(body)} bytes, header says "
+            f"{body_len}")
+    crc_fn = _wal._checksum_fn(algo)
+    if crc_fn is not None and (crc_fn(body, 0) & 0xFFFFFFFF) != crc:
+        raise PartsError(f"part {path}: checksum mismatch")
+    return body
+
+
+def read_part_file(path: str,
+                   columns: Optional[Sequence[str]] = None
+                   ) -> ColumnarBatch:
+    """Decode one part file (verifying the checksum) into a batch with
+    fresh per-file dictionaries — the caller adopts it into table code
+    space. Raises PartsError on any structural damage.
+
+    `columns` restricts the decode to that subset: the other columns'
+    byte ranges are skipped on disk (wal.decode_record_body) — the
+    cold-tier read path for queries that touch a handful of the 52
+    columns."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError as e:
+        raise PartsError(f"part {path} unreadable: {e}")
+    if len(data) < _PART_HEADER.size:
+        raise PartsError(f"part {path}: short header")
+    magic, ver, algo, _, crc, body_len = _PART_HEADER.unpack_from(
+        data, 0)
+    if magic != _PART_MAGIC or ver not in _PART_VERSIONS:
+        raise PartsError(f"part {path}: bad magic/version")
+    body = data[_PART_HEADER.size:]
+    if len(body) != body_len:
+        raise PartsError(
+            f"part {path}: body is {len(body)} bytes, header says "
+            f"{body_len}")
+    crc_fn = _wal._checksum_fn(algo)
+    if crc_fn is not None and (crc_fn(body, 0) & 0xFFFFFFFF) != crc:
+        raise PartsError(f"part {path}: checksum mismatch")
+    try:
+        _, batch = _wal.decode_record_body(
+            body, None if columns is None else frozenset(columns))
+    except _wal.WalCorruption as e:
+        raise PartsError(f"part {path}: {e}")
+    return batch
+
+
+# -- parts ----------------------------------------------------------------
+
+#: process-unique Part identities — the query-result cache fingerprints
+#: the part SET with these (seal/merge/delete mint new Part objects,
+#: demote flips the tier; either moves the fingerprint)
+_part_uid = itertools.count(1)
+
+
+class Part:
+    """One immutable sealed part: row count + min/max pruning metadata
+    always resident; column chunks resident on the hot tier, decoded
+    on demand from the self-contained file on the cold tier.
+
+    Format v2 parts additionally carry (hot tier) the `rowid` sort
+    permutation and the granule `indexes`; rowid spills with the
+    chunks on demotion (the file holds it), indexes stay resident —
+    they are the pruning substrate and cost ~0.2 B/row."""
+
+    __slots__ = ("rows", "minmax", "chunks", "path", "tier",
+                 "file_bytes", "raw_bytes", "uid",
+                 "fmt", "sort_key", "rowid", "indexes")
+
+    def __init__(self, rows: int, minmax: Dict[str, Tuple[int, int]],
+                 chunks: Optional[Dict[str, object]],
+                 path: Optional[str] = None, tier: str = "hot",
+                 file_bytes: int = 0, raw_bytes: int = 0,
+                 fmt: int = PART_FORMAT_UNSORTED,
+                 sort_key: Tuple[str, ...] = (),
+                 rowid: Optional[np.ndarray] = None,
+                 indexes: Optional[PartIndexes] = None) -> None:
+        self.uid = next(_part_uid)
+        self.rows = rows
+        self.minmax = minmax
+        self.chunks = chunks
+        self.path = path
+        self.tier = tier
+        self.file_bytes = file_bytes
+        self.raw_bytes = raw_bytes
+        self.fmt = fmt
+        self.sort_key = tuple(sort_key)
+        self.rowid = rowid
+        self.indexes = indexes
+
+    @property
+    def nbytes(self) -> int:
+        """Resident (hot-tier) encoded bytes (chunks + the rowid
+        permutation); a demoted part costs 0 — its tiny indexes are
+        metadata, like minmax, and deliberately not charged."""
+        if self.chunks is None:
+            return 0
+        n = sum(c.nbytes for c in self.chunks.values())
+        if self.rowid is not None:
+            n += self.rowid.nbytes
+        return n
+
+    def overlaps(self, start: Optional[int], end: Optional[int],
+                 time_column: str, end_column: str) -> bool:
+        """May this part hold rows with `time_column >= start AND
+        end_column < end`? Missing metadata means 'maybe' (decode)."""
+        if start is not None:
+            mm = self.minmax.get(time_column)
+            if mm is not None and mm[1] < start:
+                return False
+        if end is not None:
+            mm = self.minmax.get(end_column)
+            if mm is not None and mm[0] >= end:
+                return False
+        return True
+
+    def manifest_entry(self) -> Dict[str, object]:
+        entry: Dict[str, object] = {
+            "file": os.path.basename(self.path) if self.path else None,
+            "rows": self.rows,
+            "tier": self.tier,
+            "bytes": self.file_bytes,
+            "rawBytes": self.raw_bytes,
+            "minmax": {k: [int(v[0]), int(v[1])]
+                       for k, v in self.minmax.items()},
+        }
+        if self.fmt != PART_FORMAT_UNSORTED:
+            # fmt is OMITTED for v1 entries, so pre-PR-12 manifests
+            # (which never carried the key) and v1 entries read the
+            # same way: absent → unsorted
+            entry["fmt"] = int(self.fmt)
+            entry["sortKey"] = list(self.sort_key)
+            if self.indexes is not None:
+                entry["granule"] = int(self.indexes.granule)
+        return entry
+
+
+def _minmax_of(batch: ColumnarBatch,
+               columns: Sequence[str]) -> Dict[str, Tuple[int, int]]:
+    out: Dict[str, Tuple[int, int]] = {}
+    for name in columns:
+        if name in batch and len(batch):
+            a = batch[name]
+            out[name] = (int(a.min()), int(a.max()))
+    return out
+
+
+class PartTable(Table):
+    """Part-backed drop-in for `Table`: same dictionaries, same insert
+    path (WAL hook included), byte-identical scan/select results —
+    rows live in sealed compressed parts + a small mutable memtable,
+    in strict insertion order (so positional delete masks and
+    flat-engine parity hold exactly)."""
+
+    def __init__(self, name: str, schema,
+                 directory: Optional[str] = None,
+                 memtable_rows: Optional[int] = None,
+                 part_rows: Optional[int] = None,
+                 partition_seconds: Optional[int] = None,
+                 time_column: str = "timeInserted",
+                 sort_key: Optional[object] = None,
+                 granule_rows: Optional[int] = None,
+                 prune_columns: Optional[Sequence[str]] = None) -> None:
+        super().__init__(name, schema)
+        # part primary key: None → env default; "" / () disables
+        # sorting (format v1, the pre-PR-12 layout). Columns the
+        # schema lacks are dropped silently so one env value serves
+        # every table shape.
+        if sort_key is None:
+            key = default_sort_key()
+        elif isinstance(sort_key, str):
+            key = tuple(c.strip() for c in sort_key.split(",")
+                        if c.strip())
+        else:
+            key = tuple(sort_key)
+        self.sort_key: Tuple[str, ...] = tuple(
+            c for c in key if any(col.name == c for col in schema))
+        self.granule_rows = max(1, (
+            env_int("THEIA_STORE_GRANULE_ROWS", DEFAULT_GRANULE_ROWS)
+            if granule_rows is None else int(granule_rows)))
+        self.parts_upgraded = 0
+        # Directory is EXPLICIT-ONLY at this level: the topology
+        # wrappers (FlowDatabase / Sharded / Replicated) resolve
+        # THEIA_STORE_COLD_DIR and suffix shard-NNN / replica-NNN —
+        # two tables resolving the env var themselves would share one
+        # directory, and the first save's GC would delete the other's
+        # files.
+        self.directory = directory or None
+        self.memtable_rows = (
+            env_int("THEIA_STORE_MEMTABLE_ROWS", DEFAULT_MEMTABLE_ROWS)
+            if memtable_rows is None else int(memtable_rows))
+        self.part_rows = (
+            env_int("THEIA_STORE_PART_ROWS", DEFAULT_PART_ROWS)
+            if part_rows is None else int(part_rows))
+        self.partition_seconds = max(1, (
+            env_int("THEIA_STORE_PARTITION_SECONDS",
+                    DEFAULT_PARTITION_SECONDS)
+            if partition_seconds is None else int(partition_seconds)))
+        self.part_time_column = (time_column if any(
+            c.name == time_column for c in schema) else None)
+        # per-part min/max metadata columns: the flow defaults, or a
+        # caller-supplied set (the `__metrics__` table tracks
+        # `resolution` so queries prune rollup tiers and EXPLAIN can
+        # name them); always intersected with the schema
+        self._prune_columns = tuple(
+            c for c in (PRUNE_COLUMNS if prune_columns is None
+                        else tuple(prune_columns))
+            if any(col.name == c for col in schema))
+        #: sealed parts, strict insertion order; the memtable
+        #: (self._batches, inherited) holds the unsealed tail
+        self._parts: List[Part] = []
+        self._memtable_len = 0
+        self.parts_sealed = 0
+        self.parts_merged = 0
+        self.parts_merged_cold = 0
+        self.parts_demoted = 0
+        self.manifest_generation = 0
+        #: part files written since the last manifest publish (fsynced
+        #: there; until then the WAL carries the rows). Guarded by
+        #: _fsync_lock: writers append from under the table lock (seal)
+        #: AND outside it (merge, materialize), and the publish swap
+        #: must not orphan a concurrent append — an entry lost here is
+        #: a manifest referencing a never-fsynced file.
+        self._pending_fsync: List[str] = []
+        self._fsync_lock = named_lock("parts.fsync")
+        #: basenames of files created but possibly not yet reachable
+        #: through _parts (a merge building its replacement part) —
+        #: the GC keep-set includes them so a concurrent save cannot
+        #: collect a file mid-creation
+        self._gc_guard: set = set()
+        #: two-phase GC for never-published tables: files found
+        #: unreferenced by one maintenance pass are only unlinked by
+        #: the NEXT pass, so a reader that snapshotted parts just
+        #: before a cold merge retired them keeps at least one full
+        #: maintenance interval to finish streaming their files
+        self._gc_candidates: set = set()
+        #: basenames captured by an in-flight snapshot's manifest
+        #: entries (set at capture, rolled into _manifest_files at
+        #: publish) — the maintenance GC must not collect a file the
+        #: about-to-publish generation references
+        self._capture_keep: set = set()
+        #: basenames referenced by the current + previous on-disk
+        #: manifest generations — the file-GC keep set (lag-one, so
+        #: the `.prev` snapshot's manifest stays loadable)
+        self._manifest_files: List[set] = [set(), set()]
+        if self.directory:
+            os.makedirs(self.directory, exist_ok=True)
+            # protect files referenced by manifests a previous run
+            # left here (we may be starting fresh beside them)
+            for suffix, slot in ((".prev", 0), ("", 1)):
+                files = self._read_manifest_files(
+                    os.path.join(self.directory,
+                                 MANIFEST_NAME + suffix))
+                self._manifest_files[slot] |= files
+
+    # -- bookkeeping -------------------------------------------------------
+
+    @staticmethod
+    def _read_manifest_files(path: str) -> set:
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+            return {e["file"] for e in doc.get("parts", [])
+                    if e.get("file")}
+        except Exception:
+            return set()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return (sum(p.rows for p in self._parts)
+                    + self._memtable_len)
+
+    @property
+    def nbytes(self) -> int:
+        """RESIDENT bytes: hot-part chunks + raw memtable. Cold parts
+        cost disk, not RAM — retention's capacity denominator."""
+        with self._lock:
+            parts = list(self._parts)
+            mem = list(self._batches)
+        return (sum(p.nbytes for p in parts)
+                + sum(v.nbytes for b in mem
+                      for v in b.columns.values()))
+
+    def _row_count_locked(self) -> int:
+        return sum(p.rows for p in self._parts) + self._memtable_len
+
+    # -- ingest ------------------------------------------------------------
+
+    def _append_adopted(self, adopted: ColumnarBatch,
+                        seal: bool = True) -> None:
+        """Memtable append. The batch's column arrays are adopted BY
+        REFERENCE — no copy between decode and memtable, which is the
+        last leg of the TBLK zero-copy ingest path (the decoded block's
+        arrays land here as-is; sealing re-encodes only when a part is
+        cut). `seal=False` is the snapshot-restore path: recovery must
+        not write fresh part files for rows the npz already holds — the
+        next live insert seals normally."""
+        nbytes = sum(a.nbytes for a in adopted.columns.values())
+        with self._lock:
+            self._batches.append(adopted)
+            self._memtable_len += len(adopted)
+            self.generation += 1
+            self.rows_inserted_total += len(adopted)
+            self.bytes_inserted_total += nbytes
+            if seal and self._memtable_len >= self.memtable_rows:
+                self._seal_locked()
+
+    def _seal_locked(self) -> None:
+        """Seal the memtable into one or more parts, cut at time-
+        partition changes between CONSECUTIVE rows — insertion order
+        is preserved exactly (the parity + positional-mask contract);
+        out-of-order arrivals just produce more parts with overlapping
+        ranges, which pruning handles via min/max."""
+        if not self._batches:
+            return
+        batch = (self._batches[0] if len(self._batches) == 1
+                 else ColumnarBatch.concat(self._batches))
+        self._batches = []
+        self._memtable_len = 0
+        if not len(batch):
+            return
+        segments: List[ColumnarBatch] = [batch]
+        if self.part_time_column is not None:
+            pkey = (np.asarray(batch[self.part_time_column], np.int64)
+                    // self.partition_seconds)
+            cuts = np.flatnonzero(pkey[1:] != pkey[:-1]) + 1
+            if 0 < len(cuts) < MAX_PARTS_PER_SEAL:
+                bounds = [0, *cuts.tolist(), len(batch)]
+                segments = [
+                    batch.take(np.arange(bounds[i], bounds[i + 1]))
+                    for i in range(len(bounds) - 1)]
+        for seg in segments:
+            self._parts.append(self._build_part(seg))
+            self.parts_sealed += 1
+            _M_SEALED.inc()
+
+    def _build_part(self, batch: ColumnarBatch,
+                    write_file: bool = True,
+                    resident: bool = True,
+                    presorted_rowid: Optional[np.ndarray] = None
+                    ) -> Part:
+        """Seal one adopted batch into a Part — sorted by the table's
+        sort key (format v2, with the rowid permutation + granule
+        indexes) unless sorting is disabled. `batch` is in INSERTION
+        order, except when `presorted_rowid` is given: the k-way merge
+        path hands an already-sorted batch plus its permutation, and
+        the stable re-sort is skipped. `write_file=False` skips the
+        on-disk copy — the delete paths rewrite parts while HOLDING
+        the table lock, and disk I/O there would stall the ingest hot
+        path; the next snapshot materializes missing files outside
+        the lock (snapshot_parts_state). `resident=False` skips the
+        in-RAM chunk encode — the cold-merge path, whose product goes
+        straight to disk (indexes are built either way: they are the
+        cold tier's pruning substrate)."""
+        n = len(batch)
+        fmt = PART_FORMAT_UNSORTED
+        rowid: Optional[np.ndarray] = None
+        indexes: Optional[PartIndexes] = None
+        sbatch = batch
+        if self.sort_key and n:
+            fmt = PART_FORMAT_SORTED
+            if presorted_rowid is not None:
+                rowid = np.asarray(presorted_rowid, np.uint32)
+            else:
+                order = np.lexsort(tuple(
+                    np.asarray(batch[c])
+                    for c in reversed(self.sort_key)))
+                rowid = order.astype(np.uint32)
+                if not np.array_equal(order,
+                                      np.arange(n, dtype=order.dtype)):
+                    sbatch = batch.take(order)
+            indexes = build_part_indexes(self.schema, sbatch,
+                                         self.granule_rows,
+                                         self.sort_key)
+        chunks = (_encode_chunks(self.schema, self.dicts, sbatch)
+                  if resident else None)
+        minmax = _minmax_of(sbatch, self._prune_columns)
+        raw = sum(a.nbytes for a in batch.columns.values())
+        path = None
+        file_bytes = 0
+        if self.directory and write_file:
+            path, file_bytes = self._write_file(sbatch, rowid)
+        return Part(n, minmax, chunks, path=path,
+                    file_bytes=file_bytes, raw_bytes=raw,
+                    fmt=fmt,
+                    sort_key=self.sort_key if fmt >= 2 else (),
+                    rowid=rowid if (resident and fmt >= 2) else None,
+                    indexes=indexes)
+
+    def _write_file(self, batch: ColumnarBatch,
+                    rowid: Optional[np.ndarray] = None
+                    ) -> Tuple[str, int]:
+        """`batch` is in FILE order; a non-None `rowid` appends the
+        permutation column and stamps format v2."""
+        path = os.path.join(
+            self.directory, f"part-{uuid.uuid4().hex[:16]}.tprt")
+        # guard BEFORE the write: a save's GC running mid-creation
+        # must keep the half-written file
+        self._gc_guard.add(os.path.basename(path))
+        version = _PART_VERSION
+        if rowid is not None:
+            cols = dict(batch.columns)
+            cols[_wal.ROWID_COLUMN] = np.asarray(rowid, np.int64)
+            batch = ColumnarBatch(cols, batch.dicts)
+            version = PART_FORMAT_SORTED
+        file_bytes = write_part_file(path, self.name, batch,
+                                     version=version)
+        with self._fsync_lock:
+            self._pending_fsync.append(path)
+        return path, file_bytes
+
+    def _materialize_part(self, part: Part) -> None:
+        """Write the file for a fileless (delete-rewritten) part, in
+        its native format (v2 parts write sorted rows + rowid from
+        the resident chunks). Runs outside the table lock; the
+        guarded swap tolerates a concurrent materializer or a racing
+        delete — the losing file just becomes an unreferenced orphan
+        the GC collects."""
+        batch, rowid = self._decode_part_sorted(part, with_rowid=True)
+        path, nbytes = self._write_file(batch, rowid)
+        with self._lock:
+            if part.path is None:
+                part.path, part.file_bytes = path, nbytes
+            else:
+                self._gc_guard.discard(os.path.basename(path))
+
+    def seal(self) -> None:
+        """Force-seal the memtable (tests, bench)."""
+        with self._lock:
+            self._seal_locked()
+
+    # -- external part surgery ---------------------------------------------
+
+    def sealed_parts(self) -> List[Part]:
+        """Point-in-time snapshot of the sealed-part list (the parts
+        themselves are immutable). The public face for out-of-package
+        maintenance (the metrics-history downsampler, obs/history.py)
+        — part internals may move; this list and `replace_parts` are
+        the contract."""
+        with self._lock:
+            return list(self._parts)
+
+    def replace_parts(self, old: Sequence[Part],
+                      rows: Sequence[Dict[str, object]]) -> bool:
+        """Atomically swap the `old` sealed parts for ONE new part
+        built from `rows` (row dicts in natural value space; empty →
+        the old parts are simply dropped). This keeps the
+        part-mutation invariants — build outside the lock, swap +
+        generation bump under it, abort when a concurrent
+        merge/demote already replaced any of `old` — IN this class,
+        next to the merge/upgrade paths that share them. Readers are
+        never caught between states: they see the old parts or the
+        new one, never neither. Returns False on the concurrent-
+        mutation abort (the caller retries against fresh state)."""
+        new_part = None
+        if rows:
+            adopted = ColumnarBatch.from_rows(list(rows), self.schema,
+                                              self.dicts)
+            # fileless: an aborted swap must not leave an orphaned,
+            # permanently-guarded part file behind — the published
+            # part's file is materialized by snapshot/maintenance
+            # outside the lock, like every hot rewrite product
+            new_part = self._build_part(adopted, write_file=False)
+        drop = set(map(id, old))
+        with self._lock:
+            present = {id(p) for p in self._parts}
+            if not drop <= present:
+                return False
+            self._parts = [p for p in self._parts
+                           if id(p) not in drop]
+            if new_part is not None:
+                self._parts.append(new_part)
+            self.generation += 1
+            for p in old:
+                self._retire_file(p)
+        return True
+
+    # -- decode ------------------------------------------------------------
+
+    def _decode_part(self, part: Part,
+                     columns: Optional[Sequence[str]] = None
+                     ) -> ColumnarBatch:
+        """Part → ColumnarBatch in table code space, in INSERTION
+        order (sorted v2 parts un-permute through their rowid — the
+        contract every parity surface and positional delete mask
+        stands on). Hot parts gather from resident chunks; tier-'hot'
+        parts without chunks (lazy manifest recovery) decode their
+        file once and promote; cold parts decode on demand and stay
+        cold.
+
+        `columns` restricts the decode to that subset: resident
+        chunks gather only those columns, and a FILE decode skips the
+        other columns' bytes on disk (plus the rowid column for a v2
+        part — the un-permute needs it). A subset decode NEVER
+        promotes (promotion needs every column) — a lazy hot part
+        stays lazy, a cold part stays cold, which is exactly what a
+        query that touches 4 of 52 columns wants."""
+        chunks, rowid = self._resident_pair(part)
+        if chunks is not None:
+            names = list(columns) if columns is not None else \
+                list(chunks)
+            cols = {n: chunks[n].decode() for n in names}
+            if rowid is not None:
+                inv = _inverse_permutation(rowid)
+                cols = {n: a[inv] for n, a in cols.items()}
+            return ColumnarBatch(cols, self.dicts)
+        adopted, rowid_arr = self._file_batch(part, columns)
+        if part.tier == "hot" and columns is None:
+            # promote in FILE (sorted) order; rowid + indexes first so
+            # a racing insertion-order reader that sees the chunks
+            # also sees the permutation (_resident_pair re-reads)
+            if rowid_arr is not None:
+                part.rowid = rowid_arr
+                part.indexes = build_part_indexes(
+                    self.schema, adopted, self.granule_rows,
+                    part.sort_key or self.sort_key)
+            part.chunks = _encode_chunks(self.schema, self.dicts,
+                                         adopted)
+        if rowid_arr is not None:
+            adopted = adopted.take(_inverse_permutation(rowid_arr))
+        return adopted
+
+    def _decode_part_sorted(self, part: Part,
+                            columns: Optional[Sequence[str]] = None,
+                            with_rowid: bool = False):
+        """Part → batch in FILE/chunk order (the part's SORT order for
+        v2) — the query engine's granule-sliced view and the k-way
+        merge's input. Never promotes, never un-permutes. Returns the
+        batch, or (batch, rowid-or-None) when `with_rowid` (rowid is
+        None for v1 parts)."""
+        chunks, rowid = self._resident_pair(part)
+        if chunks is not None:
+            names = list(columns) if columns is not None else \
+                list(chunks)
+            batch = ColumnarBatch(
+                {n: chunks[n].decode() for n in names}, self.dicts)
+            return (batch, rowid) if with_rowid else batch
+        want_rowid = with_rowid and part.fmt >= PART_FORMAT_SORTED
+        batch, rowid_arr = self._file_batch(
+            part, columns, want_rowid=want_rowid)
+        return (batch, rowid_arr) if with_rowid else batch
+
+    def _resident_pair(self, part: Part):
+        """Race-consistent (chunks, rowid) snapshot of a part's
+        resident state, taken lock-free against BOTH in-place
+        transitions: DEMOTION clears chunks first then rowid, so
+        reading rowid before chunks can't see chunks with the
+        permutation already gone; lazy PROMOTION sets rowid before
+        chunks, so observing fresh chunks with a stale rowid=None is
+        repaired by one re-read. If a demotion races the re-read too,
+        the file path (always present across either transition) is
+        the safe answer — chunks reports None."""
+        rowid = part.rowid
+        chunks = part.chunks
+        if chunks is not None and rowid is None and \
+                part.fmt >= PART_FORMAT_SORTED:
+            rowid = part.rowid
+            if rowid is None:
+                chunks = None
+        return chunks, rowid
+
+    def _file_batch(self, part: Part,
+                    columns: Optional[Sequence[str]] = None,
+                    want_rowid: bool = True
+                    ) -> Tuple[ColumnarBatch, Optional[np.ndarray]]:
+        """Decode a part's FILE into table code space, in FILE (sort)
+        order: (adopted batch, rowid permutation or None for v1).
+        `want_rowid=False` skips reading the rowid column's bytes on
+        a subset decode that doesn't need the permutation."""
+        if part.path is None:
+            raise PartsError(
+                f"part of {self.name} has neither resident chunks nor "
+                f"a file (corrupted state)")
+        read_cols = columns
+        if columns is not None and want_rowid and \
+                part.fmt >= PART_FORMAT_SORTED:
+            read_cols = list(columns)
+            if _wal.ROWID_COLUMN not in read_cols:
+                read_cols.append(_wal.ROWID_COLUMN)
+        raw = read_part_file(part.path, columns=read_cols)
+        rowid_arr = raw.columns.pop(_wal.ROWID_COLUMN, None)
+        batch = self._adopt(raw, columns=columns)
+        return batch, (None if rowid_arr is None
+                       else np.asarray(rowid_arr, np.uint32))
+
+    def _snapshot_refs(self) -> Tuple[List[Part], List[ColumnarBatch]]:
+        with self._lock:
+            return list(self._parts), list(self._batches)
+
+    def export_encoded_records(self, parts: Optional[List[Part]] = None,
+                               mem: Optional[List[ColumnarBatch]] = None,
+                               chunk_rows: int = 65536):
+        """Yield self-contained WAL-record BODIES covering every row of
+        this table — the cluster resync shipping format ("ship sealed
+        parts, then the WAL tail"). COLD/lazy parts ship their file
+        body verbatim (it IS the exact record body — zero decode),
+        which for a sorted v2 part means the rows arrive in the part's
+        SORT order (receivers drop the __rowid__ column at adoption);
+        hot parts and the memtable encode their batches in insertion
+        order. Cross-node row parity is therefore ORDER-INSENSITIVE
+        by contract (the PR-12 oracle floor) — each node's own
+        insertion order stays self-consistent, which is all the
+        positional-delete machinery needs, but a resynced follower's
+        row order may legitimately differ from its leader's. Pass
+        refs captured under the caller's consistency
+        latch; parts are immutable, so the refs stay valid after the
+        latch releases (a raced maintenance GC unlinking a retired
+        file falls back to the in-RAM decode path)."""
+        if parts is None or mem is None:
+            parts, mem = self._snapshot_refs()
+        for p in parts:
+            if p.chunks is None and p.path is not None:
+                try:
+                    yield read_part_body(p.path)
+                    continue
+                except PartsError:
+                    pass   # fall through: _decode_part re-raises if
+                           # the file is truly gone AND chunks is None
+            yield _wal.encode_record_body(self.name,
+                                          self._decode_part(p))
+        for b in mem:
+            for i in range(0, len(b), chunk_rows):
+                idx = np.arange(i, min(i + chunk_rows, len(b)))
+                yield _wal.encode_record_body(self.name, b.take(idx))
+
+    def scan(self) -> ColumnarBatch:
+        """Whole-table view, insertion order. Unlike the flat engine
+        there is deliberately NO compaction side effect: the encoded
+        parts ARE the resident representation."""
+        parts, mem = self._snapshot_refs()
+        if not parts and not mem:
+            return ColumnarBatch(
+                {c.name: np.zeros(0, c.host_dtype)
+                 for c in self.schema}, self.dicts)
+        if parts:
+            _M_SCANNED.inc(len(parts))
+        batches = [self._decode_part(p) for p in parts] + mem
+        if len(batches) == 1:
+            return batches[0]
+        return ColumnarBatch.concat(batches)
+
+    def select(self, start_time: Optional[int] = None,
+               end_time: Optional[int] = None,
+               time_column: str = "flowStartSeconds",
+               end_column: str = "flowEndSeconds",
+               columns: Optional[Sequence[str]] = None
+               ) -> ColumnarBatch:
+        """Time-window select decoding ONLY parts whose min/max range
+        overlaps the window — the pruned read path that makes keeping
+        analytics in the store affordable. `columns` projects the
+        result to that subset AND pushes the projection into the part
+        decode: a pruned select over cold parts reads only those
+        columns' bytes from disk (the window columns ride along for
+        the mask, then drop out of the result)."""
+        if start_time is None and end_time is None and columns is None:
+            return self.scan()
+        decode_cols = None
+        if columns is not None:
+            decode_cols = list(columns)
+            for c in ((time_column,) if start_time is not None else ()
+                      ) + ((end_column,) if end_time is not None
+                           else ()):
+                if c not in decode_cols:
+                    decode_cols.append(c)
+        parts, mem = self._snapshot_refs()
+        live = [p for p in parts
+                if p.overlaps(start_time, end_time, time_column,
+                              end_column)]
+        _M_PRUNED.inc(len(parts) - len(live))
+        if live:
+            _M_SCANNED.inc(len(live))
+        out: List[ColumnarBatch] = []
+        decoded = [self._decode_part(p, columns=decode_cols)
+                   for p in live]
+        if columns is not None:
+            mem = [b.select(decode_cols) for b in mem]
+        for batch in (decoded + mem):
+            if not len(batch):
+                continue
+            mask = np.ones(len(batch), dtype=bool)
+            if start_time is not None:
+                mask &= batch[time_column] >= start_time
+            if end_time is not None:
+                mask &= batch[end_column] < end_time
+            if columns is not None:
+                batch = batch.select(columns)
+            out.append(batch if mask.all() else batch.filter(mask))
+        if not out:
+            schema = (self.schema if columns is None else
+                      [c for c in self.schema if c.name in columns])
+            return ColumnarBatch(
+                {c.name: np.zeros(0, c.host_dtype)
+                 for c in schema}, self.dicts)
+        return out[0] if len(out) == 1 else ColumnarBatch.concat(out)
+
+    # -- deletes -----------------------------------------------------------
+
+    def _retire_file(self, part: Part) -> None:
+        """A dropped/rewritten part leaves its file ON DISK for the
+        publish-time GC: an in-flight snapshot may have captured
+        manifest entries referencing it moments ago, and the lag-one
+        manifest pair may still need it — gc_part_files' keep-set is
+        the single place that can decide removal safely. Here we only
+        release the creation guard."""
+        if part.path is not None:
+            self._gc_guard.discard(os.path.basename(part.path))
+
+    def _replacement_part(self, old: Part,
+                          keep: ColumnarBatch) -> Part:
+        """Survivor part for a boundary-straddling rewrite, SAME TIER
+        as the original: a cold part's survivors go straight back to
+        the cold tier (file written now — the decode already paid the
+        disk read, and re-promoting retention's own rewrites would
+        migrate the cold tier back into RAM); hot survivors stay
+        resident and fileless until maintenance/snapshot materializes
+        them outside the lock."""
+        if old.tier == "cold" and self.directory:
+            part = self._build_part(keep, write_file=True,
+                                    resident=False)
+            part.tier = "cold"
+            return part
+        return self._build_part(keep, write_file=False)
+
+    def _rewrite_part_locked(self, idx: int,
+                             keep: ColumnarBatch) -> None:
+        """Replace part `idx` in place with the filtered survivor
+        rows (or drop it when none survive)."""
+        old = self._parts[idx]
+        if len(keep):
+            self._parts[idx] = self._replacement_part(old, keep)
+        else:
+            del self._parts[idx]
+        self._retire_file(old)
+
+    def _filter_memtable_locked(self, mask_of) -> int:
+        """Filter every memtable batch by `mask_of(batch)` (a delete
+        mask, or None/all-False to keep the batch untouched); rebuilds
+        the memtable bookkeeping and returns rows deleted. The single
+        memtable walk every delete path shares."""
+        deleted = 0
+        new_mem: List[ColumnarBatch] = []
+        for b in self._batches:
+            m = mask_of(b)
+            if m is None or not m.any():
+                new_mem.append(b)
+                continue
+            deleted += int(m.sum())
+            kept = b.filter(~m)
+            if len(kept):
+                new_mem.append(kept)
+        self._batches = new_mem
+        self._memtable_len = sum(len(b) for b in new_mem)
+        return deleted
+
+    def _delete_where_locked(self, mask: np.ndarray) -> int:
+        total = self._row_count_locked()
+        if len(mask) != total:
+            raise ValueError(
+                f"mask length {len(mask)} != table length {total}")
+        if total == 0 or not mask.any():
+            return 0
+        deleted = 0
+        off = 0
+        # forward walk with explicit offsets; collect rewrites first
+        # so indices stay stable, then apply back-to-front
+        rewrites: List[Tuple[int, Optional[ColumnarBatch]]] = []
+        for i, part in enumerate(self._parts):
+            sl = mask[off:off + part.rows]
+            off += part.rows
+            if not sl.any():
+                continue
+            deleted += int(sl.sum())
+            if sl.all():
+                rewrites.append((i, None))
+            else:
+                data = self._decode_part(part)
+                rewrites.append((i, data.filter(~sl)))
+        for i, keep in reversed(rewrites):
+            if keep is None:
+                old = self._parts.pop(i)
+                self._retire_file(old)
+            else:
+                self._rewrite_part_locked(i, keep)
+
+        def mem_mask(b):
+            nonlocal off
+            sl = mask[off:off + len(b)]
+            off += len(b)
+            return sl
+
+        deleted += self._filter_memtable_locked(mem_mask)
+        if deleted:
+            self.generation += 1
+        return deleted
+
+    def delete_older_than(self, boundary: int,
+                          column: str = "timeInserted") -> int:
+        """`column < boundary` delete: whole parts wholly below the
+        boundary DROP without decoding (the common retention case);
+        only boundary-straddling parts pay a decode + rewrite."""
+        deleted = 0
+        with self._lock:
+            kept_parts: List[Part] = []
+            for part in self._parts:
+                mm = part.minmax.get(column)
+                if mm is not None and mm[0] >= boundary:
+                    kept_parts.append(part)
+                    continue
+                if mm is not None and mm[1] < boundary:
+                    deleted += part.rows
+                    self._retire_file(part)
+                    continue
+                data = self._decode_part(part)
+                mask = np.asarray(data[column]) < boundary
+                n = int(mask.sum())
+                if n == 0:
+                    kept_parts.append(part)
+                    continue
+                deleted += n
+                keep = data.filter(~mask)
+                self._retire_file(part)
+                if len(keep):
+                    kept_parts.append(
+                        self._replacement_part(part, keep))
+            self._parts = kept_parts
+            deleted += self._filter_memtable_locked(
+                lambda b: np.asarray(b[column]) < boundary)
+            if deleted:
+                self.generation += 1
+        return deleted
+
+    def delete_ids(self, ids, column: str = "id",
+                   invert: bool = False) -> int:
+        """Value-based delete resolved through DICTIONARY CODES (no
+        string materialization); parts whose unique-code set misses
+        every target skip their decode entirely. Codes resolve under
+        the table lock — see Table.delete_ids for the invert=True
+        race this closes."""
+        d = self.dicts[column]
+        deleted = 0
+        with self._lock:
+            # unique, not just sorted: the per-part unique-code
+            # intersection below passes assume_unique=True, and the
+            # caller's id list may repeat
+            codes = np.unique(np.asarray(
+                [c for c in (d.lookup(str(s)) for s in ids)
+                 if c is not None], np.int32))
+            if not len(codes) and not invert:
+                return 0
+            rewrites: List[Tuple[int, Optional[ColumnarBatch]]] = []
+            for i, part in enumerate(self._parts):
+                chunk = part.chunks.get(column) \
+                    if part.chunks is not None else None
+                if (not invert and isinstance(chunk, _StrChunk)
+                        and not np.isin(chunk.uniq, codes,
+                                        assume_unique=True).any()):
+                    continue   # provably no row matches — skip decode
+                data = self._decode_part(part)
+                mask = np.isin(np.asarray(data[column], np.int32),
+                               codes)
+                if invert:
+                    mask = ~mask
+                if not mask.any():
+                    continue
+                deleted += int(mask.sum())
+                rewrites.append(
+                    (i, None if mask.all() else data.filter(~mask)))
+            for i, keep in reversed(rewrites):
+                if keep is None:
+                    old = self._parts.pop(i)
+                    self._retire_file(old)
+                else:
+                    self._rewrite_part_locked(i, keep)
+
+            def mem_mask(b):
+                m = np.isin(np.asarray(b[column], np.int32), codes)
+                return ~m if invert else m
+
+            deleted += self._filter_memtable_locked(mem_mask)
+            if deleted:
+                self.generation += 1
+        return deleted
+
+    def time_bounds(self, columns=Table.TIME_BOUND_COLUMNS):
+        """{column: (min, max)} from resident part metadata plus the
+        (small) memtable — O(parts) per call, the cluster-heartbeat
+        piggyback. A part missing metadata for a column makes that
+        column unknown (omitted): peer pruning must never act on a
+        bound that does not cover every row."""
+        with self._lock:
+            parts = list(self._parts)
+            mem = list(self._batches)
+        out = {}
+        for col in columns:
+            lo: Optional[int] = None
+            hi: Optional[int] = None
+            known = True
+            for p in parts:
+                mm = p.minmax.get(col)
+                if mm is None:
+                    known = False
+                    break
+                lo = mm[0] if lo is None else min(lo, mm[0])
+                hi = mm[1] if hi is None else max(hi, mm[1])
+            if not known:
+                continue
+            for b in mem:
+                if col in b and len(b):
+                    a = b[col]
+                    lo = (int(a.min()) if lo is None
+                          else min(lo, int(a.min())))
+                    hi = (int(a.max()) if hi is None
+                          else max(hi, int(a.max())))
+            if lo is not None:
+                out[col] = (int(lo), int(hi))
+        return out
+
+    def min_value(self, column: str = "timeInserted") -> Optional[int]:
+        """O(parts) from metadata for pruning columns; decode fallback
+        otherwise."""
+        with self._lock:
+            parts = list(self._parts)
+            mem = list(self._batches)
+        mins: List[int] = []
+        decode: List[Part] = []
+        for p in parts:
+            mm = p.minmax.get(column)
+            if mm is not None:
+                mins.append(mm[0])
+            else:
+                decode.append(p)
+        for p in decode:
+            data = self._decode_part(p)
+            if len(data):
+                mins.append(int(data[column].min()))
+        mins.extend(int(b[column].min()) for b in mem if len(b))
+        return min(mins) if mins else None
+
+    def truncate(self) -> None:
+        with self._lock:
+            for part in self._parts:
+                self._retire_file(part)
+            self._parts = []
+            self._batches = []
+            self._memtable_len = 0
+            self.generation += 1
+
+    # -- retention: O(parts) boundary + tiering ----------------------------
+
+    def _retention_meta(self) -> List[Tuple[int, int, int, Callable]]:
+        """(min, max, rows, fetch_time_column) per part/memtable batch
+        — the O(parts) substrate for retention boundary selection
+        (flow_store.boundary_from_meta)."""
+        col = self.part_time_column or "timeInserted"
+        with self._lock:
+            parts = list(self._parts)
+            mem = list(self._batches)
+        out: List[Tuple[int, int, int, Callable]] = []
+        for p in parts:
+            mm = p.minmax.get(col)
+            if mm is None:
+                data = self._decode_part(p)
+                if not len(data):
+                    continue
+                a = np.asarray(data[col])
+                mm = (int(a.min()), int(a.max()))
+            out.append((mm[0], mm[1], p.rows,
+                        lambda p=p: np.asarray(
+                            self._decode_part(p)[col])))
+        for b in mem:
+            if len(b):
+                a = np.asarray(b[col])
+                out.append((int(a.min()), int(a.max()), len(b),
+                            lambda a=a: a))
+        return out
+
+    def retention_boundary(self, delete_n: int) -> Optional[int]:
+        from .flow_store import boundary_from_meta
+        return boundary_from_meta(self._retention_meta(), delete_n)
+
+    def demote_oldest(self, target_bytes: int) -> int:
+        """Demote hot parts — oldest first by min time — to the cold
+        tier until resident bytes fall to `target_bytes`. A part
+        without a file (no directory configured) cannot be demoted.
+        Returns resident bytes freed."""
+        freed = 0
+        col = self.part_time_column or "timeInserted"
+        with self._lock:
+            resident = (sum(p.nbytes for p in self._parts)
+                        + sum(v.nbytes for b in self._batches
+                              for v in b.columns.values()))
+            candidates = sorted(
+                (p for p in self._parts
+                 if p.tier == "hot" and p.chunks is not None
+                 and p.path is not None),
+                key=lambda p: p.minmax.get(col, (0, 0))[0])
+            for part in candidates:
+                if resident - freed <= target_bytes:
+                    break
+                freed += part.nbytes
+                # tier BEFORE chunks: a lock-free reader (the query
+                # engine) that observes chunks=None must also observe
+                # tier=cold, or it would take the lazy-hot decode
+                # path and promote the part we just demoted. chunks
+                # BEFORE rowid: _decode_part reads rowid first, so it
+                # can never see resident chunks whose permutation is
+                # already gone. The granule indexes stay resident —
+                # they are what lets cold queries keep pruning.
+                part.tier = "cold"
+                part.chunks = None
+                part.rowid = None
+                self.parts_demoted += 1
+                _M_DEMOTED.inc()
+        return freed
+
+    # -- background compaction ---------------------------------------------
+
+    def maintain(self) -> int:
+        """One maintenance pass: merge runs of ADJACENT small parts in
+        the same time partition (adjacency preserves global insertion
+        order) — hot runs in RAM, cold runs on disk without
+        re-promotion — upgrade a bounded number of pre-PR-12 v1
+        parts to sorted+indexed v2 in place, materialize files for
+        delete-rewritten parts, and — for tables that never publish
+        a manifest (sharded/replicated shards, whose wholesale
+        snapshots don't consult part files) — collect unreferenced
+        files, which would otherwise accumulate forever since every
+        delete defers its unlink to a publish-time GC that never runs
+        there. Returns merges performed (upgrades count: a store with
+        pending upgrades keeps its maintenance cadence busy)."""
+        merges = self._merge_pass()
+        if self.sort_key:
+            merges += self._upgrade_pass()
+        if self.directory:
+            with self._lock:
+                missing = [p for p in self._parts if p.path is None]
+            for p in missing:
+                self._materialize_part(p)
+            if self.manifest_generation == 0 and \
+                    not self._manifest_files[0] and \
+                    not self._manifest_files[1]:
+                self._gc_unpublished()
+        return merges
+
+    def _merge_pass(self) -> int:
+        merges = 0
+        for tier in ("hot", "cold"):
+            if tier == "cold" and not self.directory:
+                continue   # cold parts live in files — nothing to do
+            while True:
+                run = self._find_merge_run(tier)
+                if run is None:
+                    break
+                if self._merge_run(run, tier):
+                    merges += 1
+                else:
+                    break
+        return merges
+
+    def _kway_merged(self, refs: List[Part]
+                     ) -> Tuple[ColumnarBatch, np.ndarray]:
+        """K-way streaming merge of a run of SORTED parts: decode each
+        part in its sort order (no un-permute, no re-sort), compute
+        the merge order from the sort-key columns only (already-
+        ordered runs concatenate for free — kway_merge_order), and
+        carry the rowid permutations through with each part's rows
+        offset by its predecessors' row counts, so the merged part's
+        insertion order is exactly the concatenation of the sources'.
+        Returns (merged sorted batch, merged rowid)."""
+        batches: List[ColumnarBatch] = []
+        rowids: List[np.ndarray] = []
+        off = 0
+        for p in refs:
+            b, rid = self._decode_part_sorted(p, with_rowid=True)
+            if rid is None:
+                raise PartsError(
+                    f"part of {self.name} claims format v2 but has "
+                    f"no rowid permutation")
+            batches.append(b)
+            rowids.append(np.asarray(rid, np.int64) + off)
+            off += p.rows
+        order = kway_merge_order(
+            [[np.asarray(b[c]) for c in self.sort_key]
+             for b in batches])
+        merged = ColumnarBatch.concat(batches)
+        rowid = np.concatenate(rowids)
+        if order is not None:
+            merged = merged.take(order)
+            rowid = rowid[order]
+        return merged, rowid.astype(np.uint32)
+
+    def _upgrade_pass(self) -> int:
+        """Rewrite up to UPGRADES_PER_PASS format-v1 parts as sorted+
+        indexed v2, tier preserved (a cold v1 part rewrites straight
+        to disk, never promoting a byte). The path old stores take to
+        granule pruning without an explicit migration step. Same
+        guarded-swap discipline as _merge_run: the rebuild happens
+        outside the lock, and a part a concurrent delete already
+        replaced just leaves an orphan file for the GC."""
+        with self._lock:
+            candidates = [p for p in self._parts
+                          if p.fmt < PART_FORMAT_SORTED and p.rows
+                          and (p.tier == "hot" or self.directory)
+                          ][:UPGRADES_PER_PASS]
+        upgraded = 0
+        for old in candidates:
+            batch = self._decode_part(old)      # insertion order
+            hot = old.tier == "hot"
+            new_part = self._build_part(
+                batch, write_file=not hot, resident=hot)
+            new_part.tier = old.tier
+            with self._lock:
+                try:
+                    i = self._parts.index(old)
+                except ValueError:
+                    i = -1
+                if i >= 0:
+                    self._parts[i] = new_part
+            if i < 0:
+                self._retire_file(new_part)
+                continue
+            self._retire_file(old)
+            self.parts_upgraded += 1
+            upgraded += 1
+            _M_UPGRADED.inc()
+        return upgraded
+
+    def _merge_run(self, refs: List[Part], tier: str) -> bool:
+        """Compact one run into a single part of the SAME tier. A cold
+        run's replacement is written straight to disk and registered
+        cold (chunks None) — a long-retention tier coalesces its tiny
+        files WITHOUT re-promoting a byte into RAM; the source parts'
+        transient decode is bounded by the run's row budget.
+
+        A run of format-v2 parts sharing the table's sort key takes
+        the K-WAY STREAMING path (_kway_merged); mixed or v1 runs
+        fall back to concat+rebuild — which, with a sort key
+        configured, produces a v2 part, i.e. merges UPGRADE old
+        parts."""
+        # decode + re-encode OUTSIDE the lock (parts are immutable);
+        # swap in only if the run is still intact
+        if self.sort_key and all(
+                p.fmt >= PART_FORMAT_SORTED
+                and p.sort_key == self.sort_key for p in refs):
+            merged, rowid = self._kway_merged(refs)
+            new_part = self._build_part(merged,
+                                        resident=(tier == "hot"),
+                                        presorted_rowid=rowid)
+        else:
+            merged = ColumnarBatch.concat(
+                [self._decode_part(p) for p in refs])
+            new_part = self._build_part(merged,
+                                        resident=(tier == "hot"))
+        if tier == "cold":
+            new_part.tier = "cold"
+        with self._lock:
+            try:
+                i = self._parts.index(refs[0])
+            except ValueError:
+                i = -1
+            intact = (i >= 0 and
+                      self._parts[i:i + len(refs)] == refs)
+            if intact:
+                self._parts[i:i + len(refs)] = [new_part]
+        if not intact:
+            # a concurrent delete rewrote the run — drop our merged
+            # part; the next maintenance pass retries (bailing here
+            # keeps a delete-heavy phase from pinning this pass in a
+            # rebuild loop)
+            self._retire_file(new_part)
+            return False
+        for p in refs:
+            self._retire_file(p)
+        self.parts_merged += 1
+        if tier == "cold":
+            self.parts_merged_cold += 1
+        _M_MERGES.inc()
+        return True
+
+    def _find_merge_run(self, tier: str = "hot"
+                        ) -> Optional[List[Part]]:
+        """Leftmost run of >= 2 ADJACENT small same-partition parts of
+        `tier` (adjacency preserves global insertion order). Hot runs
+        compact resident chunks; cold runs compact the on-disk files a
+        long-retention tier otherwise accumulates one tiny demotion at
+        a time."""
+        col = self.part_time_column
+        with self._lock:
+            small = self.part_rows // 2
+
+            def pkey(p: Part) -> Optional[int]:
+                if col is None:
+                    return 0
+                mm = p.minmax.get(col)
+                return (None if mm is None
+                        else mm[0] // self.partition_seconds)
+
+            run: List[Part] = []
+            total = 0
+            for p in self._parts:
+                mergeable = (p.tier == tier and p.rows < small
+                             and pkey(p) is not None
+                             and (tier == "hot"
+                                  or p.path is not None))
+                if (mergeable and run
+                        and pkey(p) == pkey(run[0])
+                        and total + p.rows <= self.part_rows):
+                    run.append(p)
+                    total += p.rows
+                    continue
+                if len(run) >= 2:
+                    return list(run)
+                run = [p] if mergeable else []
+                total = p.rows if mergeable else 0
+            return list(run) if len(run) >= 2 else None
+
+    # -- manifest persistence ----------------------------------------------
+
+    def snapshot_parts_state(self) -> Tuple[List[Dict[str, object]],
+                                            Dict[str, np.ndarray]]:
+        """Under the caller's quiesce window: (manifest entries for
+        every sealed part, memtable columns payload). Requires a
+        directory (every sealed part has a file)."""
+        with self._lock:
+            parts = list(self._parts)
+            mem = list(self._batches)
+        for p in parts:
+            if p.path is None and self.directory:
+                # delete-path rewrites skip the file write while they
+                # hold the table lock; materialize here, outside it
+                # (parts are immutable, so this needs no lock)
+                self._materialize_part(p)
+        entries = [p.manifest_entry() for p in parts]
+        if any(e["file"] is None for e in entries):
+            raise PartsError(
+                f"table {self.name} has sealed parts without files — "
+                f"manifest persistence needs a part directory")
+        self._capture_keep = {e["file"] for e in entries if e["file"]}
+        if mem:
+            batch = mem[0] if len(mem) == 1 \
+                else ColumnarBatch.concat(mem)
+        else:
+            batch = ColumnarBatch(
+                {c.name: np.zeros(0, c.host_dtype)
+                 for c in self.schema}, self.dicts)
+        payload = {f"{self.name}/{c.name}": batch[c.name]
+                   for c in self.schema}
+        return entries, payload
+
+    def publish_manifest(self, entries: List[Dict[str, object]],
+                         stamp: Optional[int]) -> int:
+        """Durably publish one manifest generation: fsync the part
+        files it references, then atomically rotate
+        manifest.json → manifest.json.prev and publish the new one
+        (fsynced). Returns the generation id the paired snapshot must
+        record."""
+        if not self.directory:
+            raise PartsError("publish_manifest needs a part directory")
+        # locked swap: a concurrent merge appending a new file must
+        # not land its entry on the orphaned list (a manifest could
+        # then reference a never-fsynced file)
+        with self._fsync_lock:
+            pending, self._pending_fsync = self._pending_fsync, []
+        try:
+            for path in pending:
+                fd = os.open(path, os.O_RDONLY)
+                try:
+                    os.fsync(fd)
+                finally:
+                    os.close(fd)
+        except OSError as e:
+            with self._fsync_lock:
+                self._pending_fsync = pending + self._pending_fsync
+            raise PartsError(f"part fsync failed: {e}")
+        self.manifest_generation += 1
+        gen = self.manifest_generation
+        body = json.dumps({"parts": entries}, sort_keys=True)
+        doc = {
+            "table": self.name,
+            "generation": gen,
+            "stamp": int(stamp) if stamp is not None else None,
+            "crc": zlib.crc32(body.encode("utf-8")) & 0xFFFFFFFF,
+            "parts": entries,
+        }
+        path = os.path.join(self.directory, MANIFEST_NAME)
+        tmp = path + f".tmp-{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(path):
+            os.replace(path, path + ".prev")
+        os.replace(tmp, path)
+        self._manifest_files = [
+            self._manifest_files[1],
+            {e["file"] for e in entries if e["file"]},
+        ]
+        return gen
+
+    def load_manifest(self, expected_gen: int) -> int:
+        """Adopt the manifest generation paired with a loaded snapshot
+        (manifest.json, else manifest.json.prev): register every part
+        lazily (metadata resident, chunks decoded on first touch).
+        Raises PartsManifestError when neither manifest matches or a
+        referenced part file is missing/short — the caller falls back
+        to the previous snapshot generation."""
+        if not self.directory:
+            raise PartsManifestError(
+                "snapshot references a part manifest but no part "
+                "directory is configured (THEIA_STORE_COLD_DIR)")
+        primary = os.path.join(self.directory, MANIFEST_NAME)
+        errors: List[str] = []
+        for path in (primary, primary + ".prev"):
+            try:
+                with open(path) as f:
+                    doc = json.load(f)
+            except FileNotFoundError:
+                errors.append(f"{path}: missing")
+                continue
+            except Exception as e:
+                errors.append(f"{path}: unreadable ({e})")
+                continue
+            if int(doc.get("generation", -1)) != int(expected_gen):
+                errors.append(
+                    f"{path}: generation {doc.get('generation')} != "
+                    f"snapshot's {expected_gen}")
+                continue
+            body = json.dumps({"parts": doc.get("parts", [])},
+                              sort_keys=True)
+            if doc.get("crc") is not None and \
+                    (zlib.crc32(body.encode("utf-8")) & 0xFFFFFFFF) \
+                    != int(doc["crc"]):
+                errors.append(f"{path}: parts-list checksum mismatch")
+                continue
+            try:
+                parts = self._adopt_manifest_doc(doc)
+            except PartsManifestError as e:
+                errors.append(f"{path}: {e}")
+                continue
+            with self._lock:
+                self._parts = parts
+                self.manifest_generation = int(doc["generation"])
+            if path != primary:
+                logger.error(
+                    "part manifest %s did not match snapshot "
+                    "generation %d — recovered from the previous "
+                    "manifest generation", primary, expected_gen)
+                # Repair the slot state: park the orphan (newer or
+                # corrupt) primary as *.orphaned and promote the
+                # matched manifest back to the primary slot.
+                # Otherwise the NEXT publish would rotate the orphan
+                # into .prev, evicting this generation from both
+                # slots while the paired snapshot still needs it —
+                # one crash would silently void the .prev fallback.
+                with contextlib.suppress(OSError):
+                    os.replace(primary, primary + ".orphaned")
+                with contextlib.suppress(OSError):
+                    os.replace(path, primary)
+                self._manifest_files = [
+                    set(),
+                    {e["file"] for e in doc.get("parts", [])
+                     if e.get("file")},
+                ]
+            return sum(p.rows for p in parts)
+        raise PartsManifestError(
+            f"no loadable manifest for generation {expected_gen}: "
+            + "; ".join(errors))
+
+    def _adopt_manifest_doc(self, doc) -> List[Part]:
+        parts: List[Part] = []
+        for e in doc.get("parts", []):
+            if not e.get("file"):
+                raise PartsManifestError("manifest entry without file")
+            path = os.path.join(self.directory, e["file"])
+            try:
+                size = os.path.getsize(path)
+            except OSError:
+                raise PartsManifestError(f"part file {path} missing")
+            if size != int(e.get("bytes", size)):
+                raise PartsManifestError(
+                    f"part file {path} is {size} bytes, manifest "
+                    f"says {e['bytes']} (torn write)")
+            parts.append(Part(
+                int(e["rows"]),
+                {k: (int(v[0]), int(v[1]))
+                 for k, v in (e.get("minmax") or {}).items()},
+                None, path=path,
+                tier=e.get("tier", "hot"),
+                file_bytes=size,
+                raw_bytes=int(e.get("rawBytes", 0)),
+                # pre-PR-12 entries carry no fmt → v1: adopted
+                # lazily, scanned, never granule-pruned, upgraded by
+                # background merges. v2 entries decode through their
+                # rowid; indexes rebuild on hot promotion.
+                fmt=int(e.get("fmt", PART_FORMAT_UNSORTED)),
+                sort_key=tuple(e.get("sortKey") or ())))
+        with self._lock:
+            self.rows_inserted_total += sum(p.rows for p in parts)
+            self.bytes_inserted_total += sum(p.raw_bytes
+                                             for p in parts)
+        return parts
+
+    def gc_part_files(self) -> int:
+        """Remove part files referenced by NEITHER live parts nor the
+        last two on-disk manifest generations (lag-one, mirroring the
+        WAL segment GC: the `.prev` snapshot's manifest must stay
+        loadable). Called after a successful manifest publish."""
+        if not self.directory:
+            return 0
+        keep = self._gc_keep_set()
+        keep |= self._manifest_files[0] | self._manifest_files[1]
+        removed = self._unlink_except(keep)
+        # the just-published generation covers the captured entries
+        self._capture_keep = set()
+        return removed
+
+    def _gc_unpublished(self) -> int:
+        """Maintenance GC for a table with NO manifest generations
+        (part files are a cold-tier cache only, never a recovery
+        source): retired files — including their never-to-be-drained
+        pending-fsync entries — collect here, since the publish-time
+        GC never runs. TWO-PHASE: a file is unlinked only once two
+        consecutive passes found it unreferenced — a query that
+        snapshotted the part list just before a cold merge retired a
+        run must be able to finish streaming those files (readers are
+        lock-free and hold no leases; one maintenance interval is the
+        grace window)."""
+        keep = self._gc_keep_set(include_pending=False)
+        try:
+            names = os.listdir(self.directory)
+        except OSError:
+            return 0
+        unref = {n for n in names
+                 if n.startswith("part-") and n.endswith(".tprt")
+                 and n not in keep}
+        doomed = unref & self._gc_candidates
+        self._gc_candidates = unref - doomed
+        removed = 0
+        for name in doomed:
+            with contextlib.suppress(OSError):
+                os.unlink(os.path.join(self.directory, name))
+                removed += 1
+        if removed:
+            logger.v(1).info(
+                "parts gc removed %d unreferenced part files under "
+                "%s", removed, self.directory)
+        with self._fsync_lock:
+            self._pending_fsync = [
+                p for p in self._pending_fsync
+                if os.path.basename(p) in keep]
+        return removed
+
+    def _gc_keep_set(self, include_pending: bool = True) -> set:
+        with self._lock:
+            live = {os.path.basename(p.path) for p in self._parts
+                    if p.path}
+        # guard entries whose part reached _parts are covered by
+        # `live` now; prune them so abandoned files don't linger
+        self._gc_guard -= live
+        keep = live | set(self._gc_guard) | set(self._capture_keep)
+        if include_pending:
+            with self._fsync_lock:
+                keep |= {os.path.basename(p)
+                         for p in self._pending_fsync}
+        return keep
+
+    def _unlink_except(self, keep: set) -> int:
+        removed = 0
+        try:
+            names = os.listdir(self.directory)
+        except OSError:
+            return 0
+        for name in names:
+            if not (name.startswith("part-")
+                    and name.endswith(".tprt")):
+                continue
+            if name in keep:
+                continue
+            with contextlib.suppress(OSError):
+                os.unlink(os.path.join(self.directory, name))
+                removed += 1
+        if removed:
+            logger.v(1).info("parts gc removed %d unreferenced part "
+                             "files under %s", removed, self.directory)
+        return removed
+
+    # -- observability -----------------------------------------------------
+
+    def parts_stats(self) -> Dict[str, object]:
+        with self._lock:
+            parts = list(self._parts)
+            mem_rows = self._memtable_len
+            mem_bytes = sum(v.nbytes for b in self._batches
+                            for v in b.columns.values())
+        hot = [p for p in parts if p.tier == "hot"]
+        cold = [p for p in parts if p.tier != "hot"]
+        indexed = [p for p in parts if p.indexes is not None]
+        return {
+            "count": len(parts),
+            "hot": len(hot),
+            "cold": len(cold),
+            "hotBytes": sum(p.nbytes for p in hot),
+            "coldBytes": sum(p.file_bytes for p in cold),
+            "rows": sum(p.rows for p in parts),
+            "memtableRows": mem_rows,
+            "memtableBytes": mem_bytes,
+            "sealed": self.parts_sealed,
+            "merges": self.parts_merged,
+            "coldMerges": self.parts_merged_cold,
+            "demoted": self.parts_demoted,
+            "sorted": sum(1 for p in parts
+                          if p.fmt >= PART_FORMAT_SORTED),
+            "upgraded": self.parts_upgraded,
+            "sortKey": list(self.sort_key),
+            "granuleRows": self.granule_rows,
+            "indexedParts": len(indexed),
+            "indexBytes": sum(p.indexes.nbytes for p in indexed),
+            "granules": sum(p.indexes.n_granules for p in indexed),
+            "generation": self.manifest_generation,
+            "directory": self.directory,
+        }
+
+    def parts_debug_entries(self, limit: int = 256
+                            ) -> List[Dict[str, object]]:
+        """Per-part inspection rows for GET /debug/parts (bounded:
+        a month-scale store can hold thousands of parts)."""
+        col = self.part_time_column or "timeInserted"
+        with self._lock:
+            parts = list(self._parts)
+        out: List[Dict[str, object]] = []
+        for p in parts[:max(0, int(limit))]:
+            idx = p.indexes
+            entry: Dict[str, object] = {
+                "uid": p.uid,
+                "tier": p.tier,
+                "fmt": p.fmt,
+                "rows": p.rows,
+                "residentBytes": p.nbytes,
+                "fileBytes": p.file_bytes,
+                "timeRange": list(p.minmax.get(col) or ()),
+            }
+            if idx is not None:
+                entry["granules"] = idx.n_granules
+                entry["granuleRows"] = idx.granule
+                entry["indexBytes"] = idx.nbytes
+            out.append(entry)
+        return out
+
+
+# -- supervised background compaction loop --------------------------------
+
+class PartMaintenanceLoop:
+    """Background driver for part compaction across a whole database
+    (FlowDatabase / ShardedFlowDatabase / ReplicatedFlowDatabase — all
+    expose `maintenance_tick()`), with the PR-2 supervision idioms: a
+    failed pass backs off on the shared capped_backoff schedule
+    instead of hammering a broken store; the first clean pass restores
+    the cadence. Stats surface on /healthz under store.maintenance."""
+
+    def __init__(self, db, interval: Optional[float] = None,
+                 backoff_cap: float = 300.0) -> None:
+        self.db = db
+        self.interval = (
+            env_float("THEIA_STORE_MERGE_INTERVAL", 5.0)
+            if interval is None else float(interval))
+        self.backoff_cap = backoff_cap
+        self.rounds = 0
+        self.merges = 0
+        self.failures = 0
+        self.consecutive_failures = 0
+        self.current_delay = self.interval
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="theia-parts-merge")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=15)
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.current_delay):
+            self.run_once()
+
+    def run_once(self) -> int:
+        try:
+            merged = int(self.db.maintenance_tick())
+        except Exception as e:   # a bad pass must not kill the loop
+            self.failures += 1
+            self.consecutive_failures += 1
+            self.current_delay = capped_backoff(
+                max(self.interval, 0.001) * 2, self.backoff_cap,
+                self.consecutive_failures)
+            logger.error(
+                "part maintenance pass failed (%d consecutive): %s; "
+                "backing off %.1fs", self.consecutive_failures, e,
+                self.current_delay)
+            return 0
+        if self.consecutive_failures:
+            logger.info("part maintenance recovered after %d failed "
+                        "passes", self.consecutive_failures)
+        self.consecutive_failures = 0
+        self.current_delay = self.interval
+        self.rounds += 1
+        self.merges += merged
+        return merged
+
+    def stats(self) -> Dict[str, object]:
+        return {
+            "rounds": self.rounds,
+            "merges": self.merges,
+            "failures": self.failures,
+            "intervalSeconds": self.interval,
+        }

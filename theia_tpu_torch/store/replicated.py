@@ -1,0 +1,693 @@
+"""Replicated flow database — the high-availability tier.
+
+Re-provides the role of the reference's Replicated*MergeTree +
+ZooKeeper topology (build/charts/theia/values.yaml:121-183: `replicas`
+per shard, ZooKeeper coordinating replica queues): R live copies of
+the logical store, writes fanned to every live replica, reads served
+from the lowest-index live one, immediate failover when a replica is
+marked down, and catch-up-by-copy when one comes back (the in-memory
+analogue of a ClickHouse replica replaying its queue from a peer).
+
+Composition order matters: replication wraps the WHOLE logical store
+(optionally a ShardedFlowDatabase), so `--shards N --replicas R` is N
+shards × R replicas — the same grid the reference's operator CRD
+renders.
+
+Consumer surface: identical to FlowDatabase. Read paths delegate to
+the active replica via __getattr__; write paths (insert, TTL,
+retention, result-table mutation) are explicit fan-out overrides.
+Result tables are wrapped so analytics jobs and the controller's GC
+mutate every live replica; their deletes are value-based
+(Table.delete_ids), because replicas route rows to different physical
+orders and a positional mask would corrupt them.
+
+Failure domains: a replica that raises during a fan-out write is
+auto-QUARANTINED (marked down with the failure recorded) while the
+write succeeds on the survivors — the divergence window is closed the
+moment it opens, instead of replicas silently drifting apart. A write
+that fails on EVERY live replica quarantines nobody and re-raises the
+first error: uniform failure means the request was bad (no replica
+took it, so no divergence), and a ValueError must keep reaching the
+client as a 400, not a replica incident. ReplicaRepairLoop resyncs
+and re-admits quarantined replicas in the background (capped
+exponential backoff per replica); replicas downed MANUALLY via
+set_replica_down are operator intent and are never re-admitted by it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import os
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..obs import metrics as _metrics
+from ..utils import get_logger
+from ..utils.backoff import capped_backoff
+from ..utils.faults import fire as _fire_fault
+from .flow_store import FlowDatabase
+from ..analysis.lockdep import named_lock
+
+logger = get_logger("replicated")
+
+_M_REPL_WRITE = _metrics.histogram(
+    "theia_replica_write_seconds",
+    "Per-replica fan-out write latency", labelnames=("replica",))
+_M_REPL_QUAR = _metrics.counter(
+    "theia_replica_quarantines_total",
+    "Replicas auto-quarantined after a failed fan-out write the "
+    "survivors took")
+_M_REPL_REPAIR = _metrics.counter(
+    "theia_replica_repairs_total",
+    "Repair-loop resync attempts on quarantined replicas, by outcome",
+    labelnames=("result",))
+
+#: result-table write/read methods the replica proxy forwards
+_TABLE_WRITES = ("insert", "insert_rows", "delete_ids",
+                 "delete_older_than", "truncate")
+
+
+class AllReplicasDownError(Exception):
+    """Every replica is marked down — no copy can serve."""
+
+
+def _suspend_ttl(replica):
+    """Disable TTL on a replica (and its shards, if sharded) for a
+    bulk re-insert; returns the saved value for _restore_ttl."""
+    saved = replica.ttl_seconds
+    replica.ttl_seconds = None
+    for shard in getattr(replica, "shards", ()):
+        shard.ttl_seconds = None
+    return saved
+
+
+def _restore_ttl(replica, saved) -> None:
+    replica.ttl_seconds = saved
+    for shard in getattr(replica, "shards", ()):
+        shard.ttl_seconds = saved
+
+
+class _ReplicatedTable:
+    """One result table across replicas: reads from the active copy,
+    writes to every live copy."""
+
+    def __init__(self, db: "ReplicatedFlowDatabase", name: str) -> None:
+        self._db = db
+        self._table_name = name
+
+    def _active(self):
+        return self._db.active.result_tables[self._table_name]
+
+    # -- reads ------------------------------------------------------------
+
+    @property
+    def name(self):
+        return self._table_name
+
+    @property
+    def schema(self):
+        return self._active().schema
+
+    @property
+    def dicts(self):
+        return self._active().dicts
+
+    @property
+    def nbytes(self):
+        return self._active().nbytes
+
+    @property
+    def generation(self):
+        return self._active().generation
+
+    def __len__(self):
+        return len(self._active())
+
+    def scan(self):
+        return self._active().scan()
+
+    def select(self, *a, **kw):
+        return self._active().select(*a, **kw)
+
+    def min_value(self, *a, **kw):
+        return self._active().min_value(*a, **kw)
+
+    # -- writes (fan-out) --------------------------------------------------
+
+    def delete_where(self, mask):
+        raise NotImplementedError(
+            "positional delete_where is unsafe across replicas (each "
+            "copy holds the same logical rows in a different physical "
+            "order); use the value-based delete_ids")
+
+    def __getattr__(self, name):
+        if name in _TABLE_WRITES:
+            def fan(*a, **kw):
+                return self._db._fanout(
+                    lambda r: getattr(
+                        r.result_tables[self._table_name],
+                        name)(*a, **kw),
+                    f"{self._table_name}.{name}")
+            return fan
+        return getattr(self._active(), name)
+
+
+class ReplicatedFlowDatabase:
+    """R live copies of the logical store behind one FlowDatabase
+    surface."""
+
+    def __init__(self, replicas: int = 2,
+                 factory: Optional[Callable[[], object]] = None,
+                 ttl_seconds: Optional[int] = None) -> None:
+        if replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        if factory is None:
+            # default factory resolves THEIA_STORE_COLD_DIR ONCE and
+            # gives every replica its own subdirectory — per-replica
+            # env resolution would share one part directory, and the
+            # active replica's save-time GC would delete its peers'
+            # cold-tier files
+            base = os.environ.get("THEIA_STORE_COLD_DIR") or None
+            counter = itertools.count()
+
+            def factory():
+                i = next(counter)
+                return FlowDatabase(
+                    ttl_seconds=ttl_seconds,
+                    parts_dir=(os.path.join(base, f"replica-{i:03d}")
+                               if base else ""))
+        make = factory
+        self.replicas: List = [make() for _ in range(replicas)]
+        self._down: set = set()
+        #: auto-quarantined replica index → {reason, since,
+        #: failedWrites}; a subset of _down. Manual set_replica_down
+        #: marks never appear here, so the repair loop leaves them be.
+        self._quarantined: Dict[int, Dict[str, object]] = {}
+        self._lock = named_lock("store.replicated")
+        # Serializes fan-out writes against each other (deterministic
+        # per-replica apply order) and — critically — against resync:
+        # without it a write landing between the resync copy and the
+        # up-mark would be missing from the recovered replica forever.
+        self._write_lock = named_lock("store.replicated_write")
+        self.result_tables: Dict[str, _ReplicatedTable] = {
+            name: _ReplicatedTable(self, name)
+            for name in self.replicas[0].result_tables}
+        for name, proxy in self.result_tables.items():
+            setattr(self, name, proxy)
+        # LOGICAL cumulative insert totals, counted once per fan-out
+        # write (not per replica). The per-replica Table counters are
+        # physical and jump on resync (truncate + full re-insert), so
+        # proxying them through `active` would spike the insert-rate
+        # stats on every failover; these stay monotone instead.
+        self._rows_inserted_total = 0
+        self._bytes_inserted_total = 0
+        #: dedup tags adopted from stray WALs (each replica's own
+        #: recovered tags live in the replica; recovered_acks() merges)
+        self._recovered_acks: List[tuple] = []
+
+    # -- replica membership ------------------------------------------------
+
+    def _live_indexed(self) -> List[Tuple[int, object]]:
+        with self._lock:
+            down = set(self._down)
+        out = [(i, r) for i, r in enumerate(self.replicas)
+               if i not in down]
+        if not out:
+            raise AllReplicasDownError(
+                f"all {len(self.replicas)} replicas are down")
+        return out
+
+    def live(self) -> List:
+        return [r for _, r in self._live_indexed()]
+
+    @property
+    def active(self):
+        """Lowest-index live replica — the read servant."""
+        return self.live()[0]
+
+    def set_replica_down(self, index: int) -> None:
+        """Manual down-mark (operator intent): excluded from writes and
+        reads, but NOT auto-re-admitted by the repair loop — even if
+        the replica was auto-quarantined first, the manual mark
+        supersedes it (the quarantine record is dropped so repair
+        leaves the replica alone)."""
+        with self._lock:
+            self._down.add(index)
+            self._quarantined.pop(index, None)
+
+    def set_replica_up(self, index: int, resync: bool = True) -> None:
+        """Bring a replica back; by default it catches up by copying
+        the active peer's state wholesale (the replica-queue replay
+        analogue — correct, if not incremental, at in-memory scale).
+        Holds the write lock across copy + up-mark, so no write can
+        slip between them and be lost on the recovered replica."""
+        with self._write_lock:
+            if resync:
+                peer = self.active
+                if self.replicas[index] is not peer:
+                    self._resync(self.replicas[index], peer)
+            with self._lock:
+                self._down.discard(index)
+                self._quarantined.pop(index, None)
+
+    def repair_replica(self, index: int) -> bool:
+        """The repair loop's re-admit entry: set_replica_up(resync=True)
+        gated — under the write lock — on the quarantine record still
+        existing. Returns False without touching the replica when it
+        was manually downed (or healed) after the caller sampled
+        quarantined_indices(); a bare set_replica_up here would revert
+        an operator's set_replica_down issued in that window."""
+        with self._write_lock:
+            with self._lock:
+                if index not in self._quarantined:
+                    return False
+            peer = self.active
+            if self.replicas[index] is not peer:
+                self._resync(self.replicas[index], peer)
+            with self._lock:
+                self._down.discard(index)
+                self._quarantined.pop(index, None)
+        return True
+
+    def _quarantine(self, index: int, exc: BaseException) -> None:
+        """Auto-mark a replica down after it failed a fan-out write
+        the survivors took (the divergence trigger). Caller holds
+        _write_lock; _lock nests inside it everywhere."""
+        with self._lock:
+            self._down.add(index)
+            info = self._quarantined.setdefault(
+                index, {"since": time.time(), "failedWrites": 0})
+            info["failedWrites"] = int(info["failedWrites"]) + 1
+            info["reason"] = f"{type(exc).__name__}: {exc}"
+        _M_REPL_QUAR.inc()
+        logger.error("replica %d quarantined after failed fan-out "
+                     "write: %s", index, exc)
+
+    def quarantined_indices(self) -> List[int]:
+        with self._lock:
+            return sorted(self._quarantined)
+
+    def membership(self) -> Dict[str, object]:
+        """Operator view of the replica set (served by /healthz)."""
+        with self._lock:
+            down = sorted(self._down)
+            quarantined = {str(i): dict(v) for i, v
+                           in sorted(self._quarantined.items())}
+        return {
+            "replicas": len(self.replicas),
+            "live": [i for i in range(len(self.replicas))
+                     if i not in down],
+            "down": down,
+            "quarantined": quarantined,
+        }
+
+    @staticmethod
+    def _resync(stale, peer) -> None:
+        # Journaling is suspended for the wholesale copy: every row
+        # re-inserted here is already durable in the PEER's log, and
+        # re-logging it would corrupt the stale replica's LSN
+        # sequence. Afterwards the stale replica's WAL jumps to the
+        # peer's position ("replays its peers' WAL position"): its
+        # memory now reflects everything up to that LSN, so appends
+        # continue above it — the gap this leaves is why recovery
+        # prefers an ungapped replica until the next checkpoint GCs
+        # the stale segments.
+        with contextlib.ExitStack() as stack:
+            if hasattr(stale, "wal_suspended"):
+                stack.enter_context(stale.wal_suspended())
+            stale.flows.truncate()
+            for view in stale.views.values():
+                view.truncate()
+            from ..query.rollup import truncate_rollups
+            truncate_rollups(stale)   # re-derived by insert_flows
+            flows = peer.flows.scan()
+            if len(flows):
+                stale.insert_flows(flows)
+            for name, table in stale.result_tables.items():
+                table.truncate()
+                data = peer.result_tables[name].scan()
+                if len(data):
+                    table.insert(data)
+        pos = peer.wal_position() if hasattr(peer, "wal_position") \
+            else None
+        if pos is not None:
+            stale.wal_reposition(pos)
+
+    # -- writes (fan-out) --------------------------------------------------
+
+    def _fanout(self, apply: Callable, what: str):
+        """Apply one write to every live replica under the write lock.
+        A replica that raises while its peers succeed is quarantined
+        (partial failure = real divergence); the write succeeds — the
+        last successful replica's result is returned — as long as ≥1
+        replica took it. Uniform failure (every live replica raised)
+        quarantines nobody and re-raises the first error: in the
+        overwhelmingly common case (validation rejects the batch)
+        nothing was applied anywhere, and a ValueError must keep
+        reaching the client as a 400, not a replica incident. Residual
+        risk, accepted: a replica that mutates partially and THEN
+        raises, while its peers raise too, diverges without being
+        quarantined — closing that needs per-write versioning, not a
+        failure-count heuristic."""
+        with self._write_lock:
+            indexed = self._live_indexed()
+            out = None
+            ok = False
+            failures: List[Tuple[int, BaseException]] = []
+            for i, r in indexed:
+                t0 = time.perf_counter()
+                try:
+                    _fire_fault("replica.write", replica=i, op=what)
+                    out = apply(r)
+                    ok = True
+                except Exception as e:
+                    failures.append((i, e))
+                finally:
+                    _M_REPL_WRITE.labels(replica=str(i)).observe(
+                        time.perf_counter() - t0)
+            if not ok:
+                raise failures[0][1]
+            for i, e in failures:
+                self._quarantine(i, e)
+            return out
+
+    def insert_flows(self, batch, now=None, dedup=None,
+                     wire=None) -> int:
+        # `wire` rides through to every replica: each journals the
+        # same received bytes verbatim (replicas are whole copies,
+        # unlike shard slices)
+        n = self._fanout(
+            lambda r: r.insert_flows(batch, now=now, dedup=dedup,
+                                     wire=wire),
+            "insert_flows")
+        nbytes = sum(np.asarray(a).nbytes
+                     for a in batch.columns.values())
+        with self._lock:
+            self._rows_inserted_total += n
+            self._bytes_inserted_total += nbytes
+        return n
+
+    def insert_flow_rows(self, rows, now=None) -> int:
+        n = self._fanout(
+            lambda r: r.insert_flow_rows(rows, now=now),
+            "insert_flow_rows")
+        with self._lock:
+            # row-shaped inserts carry no columnar byte size here; the
+            # rows counter still moves (bytes stay a lower bound)
+            self._rows_inserted_total += n
+        return n
+
+    @property
+    def rows_inserted_total(self) -> int:
+        """Cumulative LOGICAL flow rows written through the fan-out
+        (monotone across failover and resync, unlike the per-replica
+        physical counters)."""
+        with self._lock:
+            return self._rows_inserted_total
+
+    @property
+    def bytes_inserted_total(self) -> int:
+        with self._lock:
+            return self._bytes_inserted_total
+
+    def evict_ttl(self, now: int) -> int:
+        return self._fanout(lambda r: r.evict_ttl(now), "evict_ttl")
+
+    def delete_flows_older_than(self, boundary: int) -> int:
+        return self._fanout(
+            lambda r: r.delete_flows_older_than(boundary),
+            "delete_flows_older_than")
+
+    # -- write-ahead log ---------------------------------------------------
+
+    def attach_wal(self, wal_dir: str, sync=None,
+                   segment_bytes=None) -> Dict[str, object]:
+        """One WAL per replica under `<wal_dir>/replica-NNN`. Each
+        replica first recovers from its own log; then every replica is
+        resynced from the BEST-recovered one — most rows behind a
+        contiguous (ungapped) log — because a replica that was
+        quarantined before the crash carries a gap where the fan-out
+        wrote around it, and recovering from a gapped log would
+        silently resurrect a stale copy. The survivors' resync also
+        jumps their logs to the best replica's position (the runtime
+        repair path's discipline, applied at startup)."""
+        per: List[Dict[str, object]] = []
+        for i, r in enumerate(self.replicas):
+            per.append(r.attach_wal(
+                os.path.join(wal_dir, f"replica-{i:03d}"),
+                sync=sync, segment_bytes=segment_bytes))
+
+        def _pos(s) -> int:
+            last = s["lastLsn"]
+            return (sum(last) if isinstance(last, (list, tuple))
+                    else int(last))
+
+        best = max(range(len(per)), key=lambda i: (
+            not per[i]["gapped"], _pos(per[i]),
+            int(per[i]["recoveredRows"])))
+        peer = self.replicas[best]
+        for i, r in enumerate(self.replicas):
+            if i == best:
+                continue
+            # the common clean restart: every replica recovered the
+            # same ungapped log to the same position — already
+            # identical, a wholesale copy would be pure waste
+            if not per[i]["gapped"] \
+                    and _pos(per[i]) == _pos(per[best]) \
+                    and per[i]["recoveredRows"] == \
+                    per[best]["recoveredRows"]:
+                continue
+            self._resync(r, peer)
+        stats = dict(per[best])
+        stats["replica"] = best
+        stats["perReplica"] = per
+        if any(i != best and _pos(per[i]) != _pos(per[best])
+               for i in range(len(per))):
+            logger.warning(
+                "replica WALs recovered to different positions; all "
+                "replicas resynced from replica %d (%d rows)",
+                best, int(per[best]["recoveredRows"]))
+        # Foreign topology content (a previous plain/sharded run's
+        # logs in the same --wal-dir, or replica dirs beyond our
+        # count) — partitions replay through the fan-out insert so
+        # every replica journals them; stray replica COPIES are
+        # redundant with what our own replicas just recovered and are
+        # only removed (or kept, loudly, if somehow ahead).
+        from .wal import adopt_foreign_wal_dirs
+        own = [os.path.join(wal_dir, f"replica-{i:03d}")
+               for i in range(len(self.replicas))]
+        stamps = getattr(self.replicas[0], "_snapshot_lsns", [])
+        adopted = adopt_foreign_wal_dirs(
+            self, wal_dir, own, list(stamps),
+            replica_copies=False, own_position=_pos(per[best]))
+        if adopted:
+            stats["adoptedRows"] = adopted
+        return stats
+
+    @contextlib.contextmanager
+    def wal_suspended(self):
+        """Suspend journaling on EVERY replica (the __getattr__ proxy
+        would reach only the active one; a fan-out write during the
+        suspension must not be journaled by the others either)."""
+        with contextlib.ExitStack() as stack:
+            for r in self.replicas:
+                if hasattr(r, "wal_suspended"):
+                    stack.enter_context(r.wal_suspended())
+            yield
+
+    def wal_stats(self) -> Optional[Dict[str, object]]:
+        return self.active.wal_stats()
+
+    def wal_lag(self) -> int:
+        """Worst unsynced-record lag across live replicas (the
+        admission plane's pressure signal: the slowest copy sets the
+        real durability exposure)."""
+        lags = [r.wal_lag() for r in self.live()
+                if hasattr(r, "wal_lag")]
+        return max(lags) if lags else 0
+
+    def note_recovered_ack(self, stream: str, seq: int, rows: int,
+                           total: Optional[int] = None) -> None:
+        self._recovered_acks.append((stream, int(seq), int(rows),
+                                     total))
+
+    def recovered_acks(self) -> List[tuple]:
+        """Dedup tags recovered at attach_wal. Replica logs are COPIES
+        of the same logical stream, so the merge dedupes by
+        (stream, seq) (taking the max recovered count) instead of
+        summing — summing would multiply every ack by the replica
+        count."""
+        merged: Dict[tuple, List] = {}
+        for r in self.replicas:
+            ra = getattr(r, "recovered_acks", None)
+            if not callable(ra):
+                continue
+            for stream, seq, rows, total in ra():
+                ent = merged.setdefault((stream, seq), [0, None])
+                ent[0] = max(ent[0], rows)
+                if total is not None:
+                    ent[1] = max(ent[1] or 0, total)
+        out = [(k[0], k[1], v[0], v[1]) for k, v in merged.items()]
+        out.extend(self._recovered_acks)
+        return out
+
+    def wal_sync(self) -> None:
+        for r in self.live():
+            r.wal_sync()
+
+    def wal_gc(self, stamp) -> int:
+        # live replicas advance in LSN lockstep (same fan-out
+        # sequence; resync repositions), so the active's snapshot
+        # stamp covers every live log
+        return sum(r.wal_gc(stamp) for r in self.live())
+
+    def close_wal(self) -> None:
+        for r in self.replicas:
+            r.close_wal()
+
+    # -- reads / passthrough ----------------------------------------------
+
+    def monitor(self, capacity_bytes: int, **kw):
+        from .flow_store import RetentionMonitor
+        return RetentionMonitor(self, capacity_bytes, **kw)
+
+    def demote_cold(self, target_bytes: int) -> int:
+        """Tiered retention must reach EVERY live replica (each holds
+        a full copy; __getattr__ would demote only the active one).
+        Returns the max freed — replicas are copies, so summing would
+        double-count the logical bytes."""
+        return max((r.demote_cold(target_bytes)
+                    for r in self.live()), default=0)
+
+    def maintenance_tick(self) -> int:
+        return sum(r.maintenance_tick() for r in self.live())
+
+    def __getattr__(self, name):
+        # flows / views / ttl_seconds / save / shards / ... — served by
+        # the active replica. (Direct writes through these bypass
+        # replication; the manager's write paths all go through the
+        # overrides above.)
+        return getattr(self.active, name)
+
+    @classmethod
+    def load(cls, path: str, replicas: int = 2,
+             ttl_seconds: Optional[int] = None,
+             **kw) -> "ReplicatedFlowDatabase":
+        """Load a snapshot into every replica (they start identical,
+        like freshly synced ClickHouse replicas). TTL is deferred
+        until every row is back in — the re-insert must not evict
+        persisted rows at an arbitrary boundary (same discipline as
+        FlowDatabase.load / ShardedFlowDatabase.load)."""
+        db = cls(replicas=replicas, ttl_seconds=ttl_seconds, **kw)
+        saved_ttls = [_suspend_ttl(r) for r in db.replicas]
+        # flat temp carrier (parts-aware snapshots decode through the
+        # cross-engine donor path; a parts carrier would seal
+        # transient files beside the replicas')
+        single = FlowDatabase.load(path, build_views=False,
+                                   engine="flat")
+        for r in db.replicas:
+            # every replica starts at the snapshot's WAL stamp, so a
+            # later attach_wal replays only records above it
+            r._snapshot_lsns = list(single._snapshot_lsns)
+        flows = single.flows.scan()
+        if len(flows):
+            db.insert_flows(flows)
+        for name, table in single.result_tables.items():
+            data = table.scan()
+            if len(data):
+                db.result_tables[name].insert(data)
+        for r, ttl in zip(db.replicas, saved_ttls):
+            _restore_ttl(r, ttl)
+        return db
+
+
+class ReplicaRepairLoop:
+    """Background self-healing for auto-quarantined replicas: resync
+    from the active peer and re-admit via db.repair_replica (the
+    set_replica_up(resync=True) path, gated on the quarantine record
+    still existing so a concurrent manual down-mark wins) — the
+    in-memory analogue of a ClickHouse replica replaying its
+    ZooKeeper queue after an outage. Failed repair attempts back off
+    exponentially per replica (capped), so a persistently broken copy
+    is probed, not hammered. Replicas downed manually stay down (they
+    carry no quarantine record).
+
+    The clock is injectable (`time_fn`) and repair_once() is public,
+    so tests drive the schedule without sleeping."""
+
+    def __init__(self, db: ReplicatedFlowDatabase,
+                 interval: float = 2.0, base_backoff: float = 1.0,
+                 max_backoff: float = 60.0,
+                 time_fn: Callable[[], float] = time.monotonic) -> None:
+        self.db = db
+        self.interval = interval
+        self.base_backoff = base_backoff
+        self.max_backoff = max_backoff
+        self.repairs = 0
+        self.failed_attempts = 0
+        self._time = time_fn
+        self._fails: Dict[int, int] = {}
+        self._next_attempt: Dict[int, float] = {}
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="theia-replica-repair")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=15)
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.repair_once()
+            except Exception as e:   # keep repairing after a bad pass
+                logger.error("replica repair pass failed: %s", e)
+
+    def repair_once(self) -> List[int]:
+        """One repair pass; returns the re-admitted replica indices."""
+        now = self._time()
+        quarantined = self.db.quarantined_indices()
+        # a replica healed elsewhere (manual set_replica_up) sheds its
+        # backoff state
+        for i in list(self._fails):
+            if i not in quarantined:
+                self._fails.pop(i, None)
+                self._next_attempt.pop(i, None)
+        healed: List[int] = []
+        for i in quarantined:
+            if self._next_attempt.get(i, 0.0) > now:
+                continue
+            try:
+                if not self.db.repair_replica(i):
+                    # manually downed (or healed elsewhere) since we
+                    # sampled the quarantine list — not ours to touch
+                    continue
+            except Exception as e:
+                self.failed_attempts += 1
+                _M_REPL_REPAIR.labels(result="failed").inc()
+                fails = self._fails.get(i, 0) + 1
+                self._fails[i] = fails
+                delay = capped_backoff(self.base_backoff,
+                                       self.max_backoff, fails)
+                self._next_attempt[i] = now + delay
+                logger.error("replica %d repair attempt %d failed "
+                             "(%s); next attempt in %.1fs",
+                             i, fails, e, delay)
+            else:
+                self.repairs += 1
+                _M_REPL_REPAIR.labels(result="repaired").inc()
+                self._fails.pop(i, None)
+                self._next_attempt.pop(i, None)
+                healed.append(i)
+                logger.info("replica %d resynced and re-admitted "
+                            "after quarantine", i)
+        return healed

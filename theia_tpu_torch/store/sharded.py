@@ -1,0 +1,557 @@
+"""Sharded flow database — the Distributed-table tier.
+
+Re-provides the reference's ClickHouse scale-out topology
+(build/charts/theia/provisioning/datasources/create_table.sh:387-403:
+`Distributed('{cluster}', default, <table>_local, rand())` over
+`shards` from values.yaml:121-126): every logical table is backed by N
+independent shards; inserts are routed row-wise by a uniform random
+assignment (the `rand()` sharding key), reads fan out to every shard
+and merge. Materialized views aggregate per shard on the insert path —
+exactly like ClickHouse, where the MV populates <view>_local on the
+shard the row landed on — and the distributed view read re-collapses
+identical group keys across shards at query time.
+
+Multicluster works the same way it does in the reference
+(test/e2e_mc/multicluster_test.go:37-80): flow sources in different
+clusters stamp their own `clusterUUID`, all rows land in one logical
+store, and every consumer filters or groups by that column.
+
+Each shard owns its dictionaries (shards are independent processes in a
+real deployment); cross-shard merges re-encode through
+ColumnarBatch.concat's dictionary reconciliation.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import contextlib
+import os
+import threading
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..schema import ColumnarBatch
+from ..utils.logging import get_logger
+from ..utils.pool import get_pool
+from .flow_store import FlowDatabase, RetentionMonitor, write_snapshot
+from .views import MATERIALIZED_VIEWS, group_sum, materialize_view_batch
+from ..analysis.lockdep import named_lock
+
+_logger = get_logger("sharded")
+
+
+def _shard_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """Shared pool for parallel per-shard inserts (the native MV
+    group-sum releases the GIL, so shards genuinely overlap on
+    multi-core hosts)."""
+    return get_pool("shard-insert", min(8, os.cpu_count() or 1))
+
+
+class DistributedTable:
+    """Read/write facade over one table across all shards."""
+
+    def __init__(self, name: str, tables: Sequence, rng) -> None:
+        self.name = name
+        self.tables = list(tables)
+        self._rng = rng
+        self._lock = named_lock("store.sharded")
+
+    @property
+    def schema(self):
+        return self.tables[0].schema
+
+    def __len__(self) -> int:
+        return sum(len(t) for t in self.tables)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t in self.tables)
+
+    @property
+    def generation(self) -> int:
+        """Sum of shard mutation counters (monotonic: shard counters
+        only grow)."""
+        return sum(t.generation for t in self.tables)
+
+    @property
+    def rows_inserted_total(self) -> int:
+        return sum(t.rows_inserted_total for t in self.tables)
+
+    @property
+    def bytes_inserted_total(self) -> int:
+        return sum(t.bytes_inserted_total for t in self.tables)
+
+    def _assign(self, n: int) -> np.ndarray:
+        with self._lock:   # rand() routing; rng isn't thread-safe
+            return self._rng.integers(0, len(self.tables), size=n)
+
+    def insert(self, batch: ColumnarBatch) -> int:
+        if len(batch) == 0:
+            return 0
+        assign = self._assign(len(batch))
+        for i, table in enumerate(self.tables):
+            part = batch.filter(assign == i)
+            if len(part):
+                table.insert(part)
+        return len(batch)
+
+    def insert_rows(self, rows) -> int:
+        if not rows:
+            return 0
+        assign = self._assign(len(rows))
+        for i, table in enumerate(self.tables):
+            table.insert_rows([r for r, a in zip(rows, assign)
+                               if a == i])
+        return len(rows)
+
+    def scan(self) -> ColumnarBatch:
+        parts = [t.scan() for t in self.tables]
+        return ColumnarBatch.concat(parts)
+
+    def select(self, *a, **kw) -> ColumnarBatch:
+        return ColumnarBatch.concat(
+            [t.select(*a, **kw) for t in self.tables])
+
+    def delete_where(self, mask: np.ndarray) -> int:
+        """Delete by a mask over the scan() row order (shard order).
+
+        Holds every shard's lock for the whole operation (in shard
+        order, so no lock-order inversion) — lengths cannot shift
+        between the split and the apply, preserving the single-node
+        all-or-nothing contract against concurrent inserts."""
+        with contextlib.ExitStack() as stack:
+            for t in self.tables:
+                stack.enter_context(t._lock)
+            lengths = [t._row_count_locked() for t in self.tables]
+            if len(mask) != sum(lengths):
+                raise ValueError(
+                    f"mask length {len(mask)} != table length "
+                    f"{sum(lengths)}")
+            deleted, off = 0, 0
+            for t, n in zip(self.tables, lengths):
+                part = mask[off:off + n]
+                off += n
+                deleted += t._delete_where_locked(part)
+            return deleted
+
+    def delete_ids(self, ids, column: str = "id",
+                   invert: bool = False) -> int:
+        return sum(t.delete_ids(ids, column=column, invert=invert)
+                   for t in self.tables)
+
+    def delete_older_than(self, boundary: int,
+                          column: str = "timeInserted") -> int:
+        return sum(t.delete_older_than(boundary, column)
+                   for t in self.tables)
+
+    def min_value(self, column: str = "timeInserted") -> Optional[int]:
+        mins = [m for m in (t.min_value(column) for t in self.tables)
+                if m is not None]
+        return min(mins) if mins else None
+
+    def retention_boundary(self, delete_n: int) -> Optional[int]:
+        """Cluster-wide boundary from every shard's part/batch
+        metadata (the reference monitor runs its boundary query over
+        the Distributed table the same way)."""
+        from .flow_store import boundary_from_meta
+        metas = []
+        for t in self.tables:
+            rm = getattr(t, "_retention_meta", None)
+            if not callable(rm):
+                return None
+            metas.extend(rm())
+        return boundary_from_meta(metas, delete_n)
+
+    def truncate(self) -> None:
+        for t in self.tables:
+            t.truncate()
+
+
+class DistributedView:
+    """Merged read view over one materialized view across shards."""
+
+    def __init__(self, name: str, views: Sequence) -> None:
+        self.name = name
+        self.views = list(views)
+        self.spec = views[0].spec
+
+    def __len__(self) -> int:
+        return len(self.scan())
+
+    def scan(self) -> ColumnarBatch:
+        """Concat shard views, then collapse identical group keys (the
+        SummingMergeTree merge across shards happens at read time for
+        Distributed views)."""
+        merged = ColumnarBatch.concat([v.scan() for v in self.views])
+        if len(merged) == 0:
+            return merged
+        keys = np.stack([np.asarray(merged[c], np.int64)
+                         for c in self.spec.key_columns], axis=1)
+        values = np.stack([np.asarray(merged[c], np.int64)
+                           for c in self.spec.sum_columns], axis=1)
+        gk, gv = group_sum(keys, values)
+        return materialize_view_batch(self.spec, gk, gv, merged.dicts)
+
+    def delete_older_than(self, boundary: int) -> int:
+        return sum(v.delete_older_than(boundary) for v in self.views)
+
+    def truncate(self) -> None:
+        for v in self.views:
+            v.truncate()
+
+
+class ShardedFlowDatabase:
+    """N-shard logical database with the FlowDatabase consumer surface.
+
+    Analytics jobs, the manager, dashboards, and stats all run
+    unmodified against this class — the same way the reference's
+    consumers query the Distributed tables and never the `_local` ones.
+    """
+
+    def __init__(self, n_shards: int = 2,
+                 ttl_seconds: Optional[int] = None,
+                 seed: int = 0,
+                 engine: Optional[str] = None,
+                 parts_dir: Optional[str] = None,
+                 parts_config: Optional[Dict[str, object]] = None
+                 ) -> None:
+        if n_shards < 1:
+            raise ValueError("n_shards must be >= 1")
+        if parts_dir is None:
+            # resolve the env HERE so every shard gets its own
+            # subdirectory — per-shard resolution would make all
+            # shards share one part directory (and one GC)
+            parts_dir = os.environ.get("THEIA_STORE_COLD_DIR") or None
+        self.shards: List[FlowDatabase] = [
+            FlowDatabase(
+                ttl_seconds=ttl_seconds, engine=engine,
+                parts_dir=(os.path.join(parts_dir, f"shard-{i:03d}")
+                           if parts_dir else ""),
+                parts_config=parts_config)
+            for i in range(n_shards)]
+        # One Generator per table: each DistributedTable serializes its
+        # own rand() stream under its own lock; sharing one Generator
+        # across tables would race (Generators are not thread-safe).
+        from .flow_store import RESULT_TABLE_SCHEMAS
+        result_names = [name for name, _ in RESULT_TABLE_SCHEMAS]
+        seqs = np.random.SeedSequence(seed).spawn(1 + len(result_names))
+        self.ttl_seconds = ttl_seconds
+        self.flows = DistributedTable(
+            "flows", [s.flows for s in self.shards],
+            np.random.default_rng(seqs[0]))
+        self.result_tables: Dict[str, DistributedTable] = {
+            name: DistributedTable(
+                name, [s.result_tables[name] for s in self.shards],
+                np.random.default_rng(seqs[1 + i]))
+            for i, name in enumerate(result_names)}
+        self.tadetector = self.result_tables["tadetector"]
+        self.recommendations = self.result_tables["recommendations"]
+        self.dropdetection = self.result_tables["dropdetection"]
+        self.flowpatterns = self.result_tables["flowpatterns"]
+        self.spatialnoise = self.result_tables["spatialnoise"]
+        self.views: Dict[str, DistributedView] = {
+            name: DistributedView(name,
+                                  [s.views[name] for s in self.shards])
+            for name in MATERIALIZED_VIEWS}
+        #: per-shard WAL stamps from the loaded snapshot (see
+        #: FlowDatabase._snapshot_lsns)
+        self._snapshot_lsns: List[int] = []
+        #: dedup tags adopted from foreign-topology WALs (per-shard
+        #: tags live in the shards; recovered_acks() merges both)
+        self._recovered_acks: List[tuple] = []
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def rows_inserted_total(self) -> int:
+        """Cumulative flow rows inserted across every shard (monotone;
+        the cluster-wide insert-rate substrate)."""
+        return self.flows.rows_inserted_total
+
+    @property
+    def bytes_inserted_total(self) -> int:
+        return self.flows.bytes_inserted_total
+
+    # -- ingest ----------------------------------------------------------
+
+    def insert_flows(self, batch: ColumnarBatch,
+                     now: Optional[int] = None,
+                     dedup: Optional[tuple] = None,
+                     wire: Optional[memoryview] = None) -> int:
+        """Route rows to shards (rand()); each shard maintains its own
+        views/TTL on its slice, like a ClickHouse shard does. A
+        `dedup` tag rides into every shard's WAL record (each slice
+        journals under the same (stream, seq), so recovery re-sums
+        the full batch's ack). A whole-batch `wire` section is
+        accepted but NOT forwarded: slices journal independently per
+        shard, so each shard re-encodes its own rows (the verbatim
+        fast path is the unsharded engine's)."""
+        if len(batch) == 0:
+            return 0
+        assign = self.flows._assign(len(batch))
+        parts = [(shard, batch.filter(assign == i))
+                 for i, shard in enumerate(self.shards)]
+        parts = [(s, p) for s, p in parts if len(p)]
+        # Shards are fully independent stores (own locks, own views,
+        # own dictionaries) — insert them concurrently when cores
+        # exist; a ClickHouse Distributed insert fans out to shard
+        # replicas in parallel the same way.
+        if len(parts) > 1 and (os.cpu_count() or 1) > 2:
+            return sum(_shard_pool().map(
+                lambda sp: sp[0].insert_flows(sp[1], now=now,
+                                              dedup=dedup), parts))
+        return sum(s.insert_flows(p, now=now, dedup=dedup)
+                   for s, p in parts)
+
+    def insert_flow_rows(self, rows, now: Optional[int] = None) -> int:
+        from ..schema import FLOW_SCHEMA
+        if not rows:
+            return 0
+        return self.insert_flows(
+            ColumnarBatch.from_rows(rows, FLOW_SCHEMA), now=now)
+
+    # -- write-ahead log --------------------------------------------------
+
+    def attach_wal(self, wal_dir: str, sync: Optional[str] = None,
+                   segment_bytes: Optional[int] = None
+                   ) -> Dict[str, object]:
+        """One WAL per shard under `<wal_dir>/shard-NNN`, recovered in
+        PARALLEL (shards are fully independent stores, so their
+        replays never interact — determinism is per-shard log order).
+        Stray logs from a different shard count (topology change
+        across restarts) are adopted through the logical insert path
+        so acknowledged rows are never orphaned."""
+        stamps = self._snapshot_lsns
+        dirs = [os.path.join(wal_dir, f"shard-{i:03d}")
+                for i in range(self.n_shards)]
+
+        def _attach(i: int) -> Dict[str, object]:
+            return self.shards[i]._attach_wal_at(
+                dirs[i], stamps[i] if i < len(stamps) else 0,
+                sync, segment_bytes)
+
+        if self.n_shards > 1 and (os.cpu_count() or 1) > 1:
+            with concurrent.futures.ThreadPoolExecutor(
+                    max_workers=min(8, self.n_shards),
+                    thread_name_prefix="theia-wal-replay") as pool:
+                per_shard = list(pool.map(_attach,
+                                          range(self.n_shards)))
+        else:
+            per_shard = [_attach(i) for i in range(self.n_shards)]
+        from .wal import adopt_foreign_wal_dirs
+        adopted = adopt_foreign_wal_dirs(self, wal_dir, dirs, stamps)
+        stats: Dict[str, object] = {
+            "recoveredRows": sum(int(s["recoveredRows"])
+                                 for s in per_shard),
+            "recoveredRecords": sum(int(s["recoveredRecords"])
+                                    for s in per_shard),
+            "droppedRecords": sum(int(s["droppedRecords"])
+                                  for s in per_shard),
+            "droppedBytes": sum(int(s["droppedBytes"])
+                                for s in per_shard),
+            "tornTail": any(s["tornTail"] for s in per_shard),
+            "gapped": any(s["gapped"] for s in per_shard),
+            "lastLsn": [int(s["lastLsn"]) for s in per_shard],
+            "perShard": per_shard,
+        }
+        if adopted:
+            stats["adoptedRows"] = adopted
+        return stats
+
+    @contextlib.contextmanager
+    def wal_suspended(self):
+        with contextlib.ExitStack() as stack:
+            for s in self.shards:
+                stack.enter_context(s.wal_suspended())
+            yield
+
+    def wal_stats(self) -> Optional[Dict[str, object]]:
+        per = [s.wal_stats() for s in self.shards]
+        if not any(per):
+            return None
+        live = [p for p in per if p]
+        return {
+            "shards": len(per),
+            "segments": sum(p["segments"] for p in live),
+            "bytes": sum(p["bytes"] for p in live),
+            "lagRecords": sum(p["lagRecords"] for p in live),
+            "lagBytes": sum(p["lagBytes"] for p in live),
+            "lastLsn": [p["lastLsn"] if p else None for p in per],
+            "syncedLsn": [p["syncedLsn"] if p else None for p in per],
+            "policy": live[0]["policy"],
+        }
+
+    def wal_lag(self) -> int:
+        """Unsynced-record lag summed over shards (the admission
+        plane's cheap per-request pressure signal)."""
+        return sum(s.wal_lag() for s in self.shards)
+
+    def note_recovered_ack(self, stream: str, seq: int, rows: int,
+                           total: Optional[int] = None) -> None:
+        self._recovered_acks.append((stream, int(seq), int(rows),
+                                     total))
+
+    def recovered_acks(self) -> List[tuple]:
+        """Dedup tags recovered across every shard's WAL replay. A
+        batch split N ways journals its (stream, seq, logical total)
+        in N shard logs, each with its slice's row count — the merge
+        re-sums the slices into one logical ack; a sum short of the
+        total means some slice was not durable at the crash."""
+        merged: Dict[tuple, List] = {}
+        for s in self.shards:
+            for stream, seq, rows, total in s.recovered_acks():
+                ent = merged.setdefault((stream, seq), [0, None])
+                ent[0] += rows
+                if total is not None:
+                    ent[1] = max(ent[1] or 0, total)
+        out = [(k[0], k[1], v[0], v[1]) for k, v in merged.items()]
+        out.extend(self._recovered_acks)
+        return out
+
+    def wal_position(self) -> Optional[List[int]]:
+        pos = [s.wal_position() for s in self.shards]
+        if all(p is None for p in pos):
+            return None
+        return [0 if p is None else p for p in pos]
+
+    def wal_reposition(self, position) -> None:
+        if position is None:
+            return
+        if not isinstance(position, (list, tuple)):
+            position = [position] * self.n_shards
+        for s, p in zip(self.shards, position):
+            s.wal_reposition(p)
+
+    def wal_sync(self) -> None:
+        for s in self.shards:
+            s.wal_sync()
+
+    def wal_gc(self, stamp) -> int:
+        if stamp is None:
+            return 0
+        if not isinstance(stamp, (list, tuple)):
+            stamp = [stamp] * self.n_shards
+        return sum(s.wal_gc(p) for s, p in zip(self.shards, stamp))
+
+    def close_wal(self) -> None:
+        for s in self.shards:
+            s.close_wal()
+
+    # -- retention --------------------------------------------------------
+
+    def evict_ttl(self, now: int) -> int:
+        return sum(s.evict_ttl(now) for s in self.shards)
+
+    def delete_flows_older_than(self, boundary: int) -> int:
+        return sum(s.delete_flows_older_than(boundary)
+                   for s in self.shards)
+
+    def monitor(self, capacity_bytes: int, **kw) -> RetentionMonitor:
+        # RetentionMonitor only touches .flows.{nbytes,scan} and
+        # .delete_flows_older_than — all provided here, so monitoring a
+        # sharded database trims every shard at one global boundary
+        # (the reference monitor runs the boundary query cluster-wide).
+        return RetentionMonitor(self, capacity_bytes, **kw)
+
+    def demote_cold(self, target_bytes: int) -> int:
+        """Tiered retention across shards: each shard demotes toward
+        an equal split of the resident-byte target."""
+        per = max(0, int(target_bytes) // self.n_shards)
+        return sum(s.demote_cold(per) for s in self.shards)
+
+    def maintenance_tick(self) -> int:
+        return sum(s.maintenance_tick() for s in self.shards)
+
+    def store_stats(self) -> Dict[str, object]:
+        """Aggregated engine/tier summary across shards."""
+        per = [s.store_stats() for s in self.shards]
+        doc: Dict[str, object] = {
+            "engine": per[0]["engine"],
+            "shards": len(per),
+            "flowRows": sum(int(p["flowRows"]) for p in per),
+            "flowBytes": sum(int(p["flowBytes"]) for p in per),
+        }
+        if any("parts" in p for p in per):
+            keys = ("count", "hot", "cold", "hotBytes", "coldBytes",
+                    "rows", "memtableRows", "memtableBytes", "sealed",
+                    "merges", "demoted")
+            agg = {k: sum(int(p["parts"][k]) for p in per
+                          if "parts" in p) for k in keys}
+            doc["parts"] = agg
+        return doc
+
+    # -- persistence ------------------------------------------------------
+
+    def save(self, path: str, tables=None, compress: bool = True
+             ) -> Optional[List[int]]:
+        """Persist the *logical* contents as one single-node snapshot
+        (FlowDatabase format); loading re-shards. Mirrors backing up a
+        cluster through the Distributed table.
+
+        With WALs attached, a full snapshot quiesces EVERY shard's log
+        while it stamps the per-shard LSN vector and scans, so each
+        stamp exactly partitions that shard's records into in-snapshot
+        vs to-replay; returns the vector for wal_gc()."""
+        wals = [s._wal for s in self.shards]
+        stamps: Optional[List[int]] = None
+        with contextlib.ExitStack() as stack:
+            if tables is None and any(w is not None for w in wals):
+                for w in wals:
+                    if w is not None:
+                        stack.enter_context(w.quiesce())
+                stamps = [0 if w is None else w.last_lsn
+                          for w in wals]
+            datas = {"flows": self.flows.scan()}
+            for name, src in self.result_tables.items():
+                datas[name] = src.scan()
+        # merge + serialize OUTSIDE the quiesce window — only the
+        # scans need the consistent point. The merged carrier is
+        # explicitly FLAT: a parts-engine carrier would write
+        # transient part files beside the live shards' for no benefit
+        # (the sharded snapshot is a wholesale logical backup).
+        merged = FlowDatabase(engine="flat")
+        if len(datas["flows"]):
+            merged.flows.insert(datas["flows"])
+        for name in self.result_tables:
+            if len(datas[name]):
+                merged.result_tables[name].insert(datas[name])
+        write_snapshot(path, merged._snapshot_payload(tables),
+                       compress=compress, wal_lsns=stamps)
+        return stamps
+
+    @classmethod
+    def load(cls, path: str, n_shards: int = 2,
+             ttl_seconds: Optional[int] = None,
+             seed: int = 0,
+             engine: Optional[str] = None,
+             parts_dir: Optional[str] = None,
+             parts_config: Optional[Dict[str, object]] = None
+             ) -> "ShardedFlowDatabase":
+        # The temp carrier is flat: a parts-engine carrier would seal
+        # transient part files it immediately discards (a parts-aware
+        # snapshot still loads — the cross-engine donor path decodes
+        # it).
+        single = FlowDatabase.load(path, build_views=False,
+                                   engine="flat")
+        # Defer TTL until every row is back in, exactly like
+        # FlowDatabase.load (flow_store.py) — otherwise the re-insert
+        # itself evicts persisted rows, at a routing-dependent boundary
+        # per shard.
+        db = cls(n_shards=n_shards, ttl_seconds=None, seed=seed,
+                 engine=engine, parts_dir=parts_dir,
+                 parts_config=parts_config)
+        db._snapshot_lsns = list(single._snapshot_lsns)
+        flows = single.flows.scan()
+        if len(flows):
+            db.insert_flows(flows)
+        for name, src in single.result_tables.items():
+            data = src.scan()
+            if len(data):
+                db.result_tables[name].insert(data)
+        db.ttl_seconds = ttl_seconds
+        for shard in db.shards:
+            shard.ttl_seconds = ttl_seconds
+        return db

@@ -1,0 +1,1417 @@
+"""Write-ahead log: bounded-loss durability for the flow store.
+
+The periodic snapshot (store/checkpoint.py) bounds kill -9 loss to one
+checkpoint interval — 60 s of *acknowledged* ingest by default. The
+reference deployment does not accept that: ClickHouse's
+Replicated*MergeTree acknowledges an insert only once it is in the
+replica log. This module closes the same gap for the in-memory store:
+every table insert appends a checksummed, length-prefixed record to a
+segment-rotated log *before* the rows become visible (and therefore
+before the client is acknowledged), so the durability contract becomes
+
+    acknowledged  ⇒  survives kill -9, within the sync-policy bound
+
+instead of "survives if the 60 s timer fired".
+
+Record framing (per segment file, little-endian):
+
+    segment header:  "TWAL" | u8 version | u8 crc algo | u16 0 | u64 first LSN
+    record frame:    u32 body length | u32 body checksum | u64 LSN |
+                     u32 header checksum (over the preceding 16 bytes) |
+                     body
+
+    The body checksum is computed OUTSIDE the log's I/O lock (bodies
+    are the bulk; concurrent inserts overlap their checksum work),
+    while the header checksum — covering length + LSN, assigned under
+    the lock — is four cheap bytes that keep a corrupt length or LSN
+    from ever being trusted.
+    body:            u32 n_rows | u16 n_cols | column*
+    column:          u16 name length | name | u8 kind
+                     kind 0 (numeric): u16 dtype length | dtype.str
+                       (logical) | u16 stored-dtype length | stored
+                       dtype.str | i64 base | u32 byte length | raw
+                       little-endian array bytes (values - base)
+                     kind 1 (string):  u32 n_unique | u32 blob length |
+                       u8 code itemsize (1/2/4) | int32 utf-8 lengths
+                       (4·n_unique) | utf-8 blob of the unique strings |
+                       local codes (itemsize·n_rows bytes)
+
+    Integer columns are stored WIDTH-REDUCED against a per-batch base:
+    a min/max scan picks the narrowest unsigned type that holds
+    (value - min) — ports and flags are int64 in the schema but fit a
+    byte, and per-batch timestamps cluster within seconds of each
+    other — cutting record bytes (and therefore the checksum + write
+    cost on the ack path) by ~3x. The logical dtype is restored at
+    replay.
+
+String columns ship the batch's *unique* strings plus local codes, so a
+record is fully self-contained: replay never depends on dictionary
+state, which lets a log recorded under one topology (shard count,
+replica set) replay into another. The checksum is CRC32C when the
+`crc32c` accelerator module is importable, else zlib CRC32 — the
+segment header records which, so a reader can verify (or loudly refuse
+to) whatever wrote the file.
+
+LSNs are monotonic per log, assigned at append under the log's I/O
+lock. Snapshot coordination: `quiesce()` is a writer latch — inserts
+hold the read side across (append + memory apply), `FlowDatabase.save`
+holds the write side while it stamps `last_lsn` and scans the tables,
+so the stamp is exact: every record with LSN ≤ stamp is in the
+snapshot, every record above it is not. Recovery = load snapshot, then
+`replay()` records above the stamp — tolerating (and physically
+truncating) a torn tail, dropping records with bad checksums without
+aborting, and logging exactly how many rows were recovered vs dropped.
+Checkpoints garbage-collect segments once they fall wholly below the
+PREVIOUS snapshot's stamp (`gc_below`; two generations must cover a
+segment, so the `.prev` fallback snapshot keeps a replayable log),
+keeping disk use bounded.
+
+Sync policy (THEIA_WAL_SYNC, default `interval:1`):
+
+    always          fsync before every acknowledgement (loss bound: 0)
+    interval:<secs> fsync at most every <secs> seconds, on the append
+                    path plus a background timer for quiescent periods
+                    (loss bound: <secs> of acks)
+    never           rely on the OS page cache (loss bound: unbounded;
+                    bench/throwaway stores only)
+
+Fault sites (utils/faults.py grammar): `wal.append`, `wal.fsync`,
+`wal.rotate`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import re
+import struct
+import threading
+import time
+import zlib
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..obs import metrics as _metrics
+from ..schema import ColumnarBatch, StringDictionary
+from ..utils.env import env_int
+from ..utils.faults import fire as _fire_fault
+from ..utils.logging import get_logger
+from ..analysis import lockdep as _lockdep
+from ..analysis.lockdep import named_lock
+from . import wire as _wire
+
+logger = get_logger("wal")
+
+try:                                    # hardware CRC32C if present
+    from crc32c import crc32c as _crc32c
+except ImportError:                     # container default: zlib CRC32
+    _crc32c = None
+
+#: checksum algorithm ids stamped into the segment header
+CRC_ALGO_CRC32C = 1
+CRC_ALGO_ZLIB = 2
+
+#: wire magic for ONE self-contained record body shipped as an ingest
+#: payload (cluster router forwards, demoted-leader tail re-ingest):
+#: `RECORD_MAGIC + encode_record_body(...)` — decodes statelessly, so
+#: it never touches a stream's dictionary-delta chain
+RECORD_MAGIC = b"TREC"
+
+#: reserved column name carried by SORTED part bodies (store/parts.py
+#: format v2): the sort permutation — `sorted_row[i]` was insertion row
+#: `rowid[i]` of the part — rides the record encoding as an ordinary
+#: numeric column (width-reduced like any other), so sorted part files
+#: stay self-contained WAL record bodies. Consumers that replay a part
+#: body as an ingest record (cluster resync) simply drop it at table
+#: adoption: schema-driven `_adopt` never copies unknown columns.
+ROWID_COLUMN = "__rowid__"
+
+_SEG_MAGIC = b"TWAL"
+_SEG_VERSION = 1
+_SEG_HEADER = struct.Struct("<4sBBHQ")      # magic, ver, algo, 0, first lsn
+_FRAME_HEAD = struct.Struct("<IIQ")         # body length, body crc, lsn
+_FRAME = struct.Struct("<IIQI")             # ... + header crc
+_SEG_RE = re.compile(r"^wal-(\d{16})\.log$")
+
+#: sanity cap on one record's payload (a corrupt length field must not
+#: make the reader allocate the file size)
+MAX_RECORD_BYTES = 1 << 30
+
+DEFAULT_SEGMENT_BYTES = 64 << 20
+
+_M_APPENDED = _metrics.counter(
+    "theia_wal_appended_bytes_total",
+    "Frame bytes appended to write-ahead logs (header + payload)")
+_M_FSYNC = _metrics.histogram(
+    "theia_wal_fsync_seconds",
+    "WAL fsync latency (the durability tax of the sync policy)")
+_M_RECOVERED = _metrics.counter(
+    "theia_wal_recovered_rows_total",
+    "Rows re-applied from WAL records above the snapshot LSN at "
+    "recovery")
+_M_TORN = _metrics.counter(
+    "theia_wal_torn_tail_total",
+    "Torn tails truncated from the last WAL segment at recovery (a "
+    "crash mid-append; the valid prefix is kept)")
+
+
+class WalError(Exception):
+    """The log cannot take appends (failed write, closed, broken)."""
+
+
+# -- exactly-once dedup tags ----------------------------------------------
+#
+# A batch stamped with a producer (stream, seq) identity journals its
+# WAL record under a TAGGED table name, so the acknowledgement and the
+# rows are durable in the SAME frame: recovery restores the dedup
+# window exactly as far as it restores the rows, and a producer
+# retrying across a kill -9 cannot double-apply a replayed batch.
+# The unit separator cannot appear in a real table name, so untagged
+# records (and whole pre-existing logs) parse unchanged.
+
+_DEDUP_SEP = "\x1f"
+
+
+def pack_dedup_tag(table: str, stream: str, seq: int,
+                   total_rows: int) -> str:
+    """Encode a producer (stream, seq) identity plus the LOGICAL
+    batch row count into the record's table-name field. The total
+    lets recovery detect a partially-durable sharded batch (slices
+    journal independently under interval sync): a recovered ack whose
+    slice sum falls short of the total is loud, not silent."""
+    return (f"{table}{_DEDUP_SEP}{stream}{_DEDUP_SEP}{int(seq)}"
+            f"{_DEDUP_SEP}{int(total_rows)}")
+
+
+def split_dedup_tag(name: str
+                    ) -> Tuple[str,
+                               Optional[Tuple[str, int, Optional[int]]]]:
+    """Inverse of `pack_dedup_tag`: (table, (stream, seq, total) or
+    None). Stream ids are PRODUCER-CONTROLLED and may themselves
+    contain the separator, so the split anchors on the fields we own:
+    the table name (first — real table names never contain it) and
+    seq/total (the last two); everything between is the stream
+    verbatim. A malformed tag degrades to untagged (the rows still
+    replay; only the dedup entry is lost — at-least-once, the pre-tag
+    contract)."""
+    if _DEDUP_SEP not in name:
+        return name, None
+    parts = name.split(_DEDUP_SEP)
+    if len(parts) < 3:
+        return parts[0], None
+    try:
+        if len(parts) == 3:   # early tag layout without the total
+            return parts[0], (parts[1], int(parts[2]), None)
+        return parts[0], (_DEDUP_SEP.join(parts[1:-2]),
+                          int(parts[-2]), int(parts[-1]))
+    except ValueError:
+        return parts[0], None
+
+
+class WalCorruption(WalError):
+    """A segment failed structural or checksum validation."""
+
+
+class WalShipGap(WalError):
+    """A log-shipping read asked for records this log no longer holds
+    (checkpoint GC removed the covering segments) — the follower is too
+    far behind to catch up frame-by-frame and must resync wholesale
+    (part-manifest catch-up), then resume from the resync position."""
+
+
+def _checksum_fn(algo: int) -> Optional[Callable[[bytes, int], int]]:
+    if algo == CRC_ALGO_CRC32C:
+        if _crc32c is None:
+            return None
+        return lambda data, crc=0: _crc32c(data, crc)
+    if algo == CRC_ALGO_ZLIB:
+        return zlib.crc32
+    return None
+
+
+#: algorithm used for NEW segments in this process
+_WRITE_ALGO = CRC_ALGO_CRC32C if _crc32c is not None else CRC_ALGO_ZLIB
+_write_crc = _checksum_fn(_WRITE_ALGO)
+
+
+@dataclasses.dataclass(frozen=True)
+class SyncPolicy:
+    """Parsed THEIA_WAL_SYNC value."""
+
+    mode: str                  # "always" | "interval" | "never"
+    seconds: float = 0.0
+
+    @staticmethod
+    def parse(spec: str) -> "SyncPolicy":
+        spec = (spec or "").strip().lower()
+        if spec in ("always", "never"):
+            return SyncPolicy(spec)
+        if spec == "interval":
+            return SyncPolicy("interval", 1.0)
+        if spec.startswith("interval:"):
+            try:
+                secs = float(spec.split(":", 1)[1])
+            except ValueError:
+                raise ValueError(
+                    f"THEIA_WAL_SYNC interval {spec!r}: seconds must "
+                    f"be a number")
+            if secs <= 0:
+                raise ValueError(
+                    f"THEIA_WAL_SYNC interval {spec!r}: seconds must "
+                    f"be > 0")
+            return SyncPolicy("interval", secs)
+        raise ValueError(
+            f"THEIA_WAL_SYNC {spec!r} is not always|interval:<secs>|"
+            f"never")
+
+    def __str__(self) -> str:
+        if self.mode == "interval":
+            return f"interval:{self.seconds:g}"
+        return self.mode
+
+
+def default_sync_policy() -> SyncPolicy:
+    return SyncPolicy.parse(os.environ.get("THEIA_WAL_SYNC", "")
+                            or "interval:1")
+
+
+# -- record codec ---------------------------------------------------------
+#
+# A WAL record body is a table-name header + a TBLK column section
+# (store/wire.py) — ONE codec shared with the producer wire format,
+# the part storage format, and the router's column-gather forwards.
+# `width_reduce` is re-exported here because the part builder and
+# historical callers import it from this module.
+
+width_reduce = _wire.width_reduce
+
+
+def pack_table_header(table: str) -> bytes:
+    """The record-body prefix for `table`: u16 length + utf-8 name
+    (or a dedup TAG — see `pack_dedup_tag`). A received TBLK column
+    section becomes a journalable record body by prepending exactly
+    this, which is what lets the ingest path journal producer bytes
+    verbatim."""
+    tname = table.encode("utf-8")
+    return struct.pack("<H", len(tname)) + tname
+
+
+def encode_record_parts(table: str, batch: ColumnarBatch
+                        ) -> List[memoryview]:
+    """Serialize a (store-coded) batch into a self-contained body, as
+    a list of buffers (small header bytes + zero-copy column views) —
+    the appender checksums and writes them without ever concatenating.
+
+    String columns (those with a dictionary on the batch) ship their
+    unique strings + local codes, so replay never depends on
+    dictionary state; numeric columns ship width-reduced little-endian
+    bytes. The LSN is NOT part of the body — it is assigned at append
+    time under the I/O lock and prepended there."""
+    return [pack_table_header(table),
+            *_wire.encode_columns_parts(batch)]
+
+
+def encode_record_body(table: str, batch: ColumnarBatch) -> bytes:
+    """One contiguous self-contained record body (the shippable unit:
+    resync records, router-forwarded batches). The framed append path
+    keeps using `encode_record_parts` to avoid the concatenation."""
+    return b"".join(bytes(p) for p in encode_record_parts(table, batch))
+
+
+def decode_record_body(body: bytes,
+                       columns: Optional[frozenset] = None
+                       ) -> Tuple[str, ColumnarBatch]:
+    """Inverse of `encode_record_parts`: (table, batch with fresh
+    per-record dictionaries). Raises WalCorruption on structural
+    damage (the caller decides whether to drop or abort).
+
+    `columns` restricts decoding to that column subset: the byte
+    ranges of every other column are SKIPPED — no array construction,
+    no string decode — which is what makes a cold part file cheap to
+    query when the plan touches 4 of the 52 columns. Framing is still
+    fully walked, so a truncated/corrupt record raises either way."""
+    try:
+        return _decode_record_body(body, columns)
+    except WalCorruption:
+        raise
+    except Exception as e:
+        raise WalCorruption(f"undecodable WAL record: {e}")
+
+
+def _decode_record_body(body: bytes,
+                        columns: Optional[frozenset] = None
+                        ) -> Tuple[str, ColumnarBatch]:
+    mv = memoryview(body)
+    (tlen,) = struct.unpack_from("<H", mv, 0)
+    table = bytes(mv[2:2 + tlen]).decode("utf-8")
+    batch, off = _wire.decode_columns(mv, 2 + tlen, columns)
+    if off != len(body):
+        raise WalCorruption(
+            f"record has {len(body) - off} trailing bytes")
+    return table, batch
+
+
+# -- snapshot/append coordination ----------------------------------------
+
+class _Latch:
+    """Tiny reader/writer latch. Inserts are readers (held across WAL
+    append + memory apply); `FlowDatabase.save` is the writer (held
+    across LSN stamp + table scan), so the stamp exactly partitions
+    records into in-snapshot vs to-replay. Writers do not exclude each
+    other (snapshots are serialized by the Checkpointer; a racing
+    manual save just reads the same consistent state).
+
+    The latch participates in the lockdep witness as a single named
+    region (both sides map to `name`): a reader holding the latch and
+    acquiring lock X, plus an X-holder waiting on the write side, is a
+    real deadlock the moment a writer is pending — the PR-14 class —
+    so read and write acquisitions both record order edges."""
+
+    def __init__(self, name: str = "wal.latch") -> None:
+        # inner coordination Condition stays bare: the witness tracks
+        # the latch as one region, not its implementation detail
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writers = 0
+        self.name = name
+        self._witness = _lockdep.enabled()
+        if self._witness:
+            _lockdep.register_name(name)
+
+    @contextlib.contextmanager
+    def read(self):
+        if self._witness:
+            # order validation BEFORE blocking: a raise-mode
+            # inversion must propagate with the latch untouched
+            _lockdep.check_before_acquire(self, self.name)
+        t0 = time.monotonic() if self._witness else 0.0
+        with self._cond:
+            waited = False
+            while self._writers:
+                waited = True
+                self._cond.wait()
+            self._readers += 1
+        if self._witness:
+            _lockdep.note_acquire(
+                self, self.name, blocking=True,
+                wait=time.monotonic() - t0 if waited else 0.0,
+                contended=waited)
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._readers -= 1
+                if self._readers == 0:
+                    self._cond.notify_all()
+            if self._witness:
+                _lockdep.note_release(self, self.name)
+
+    @contextlib.contextmanager
+    def write(self):
+        if self._witness:
+            _lockdep.check_before_acquire(self, self.name)
+        t0 = time.monotonic() if self._witness else 0.0
+        with self._cond:
+            self._writers += 1
+            waited = False
+            while self._readers:
+                waited = True
+                self._cond.wait()
+        if self._witness:
+            _lockdep.note_acquire(
+                self, self.name, blocking=True,
+                wait=time.monotonic() - t0 if waited else 0.0,
+                contended=waited)
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writers -= 1
+                self._cond.notify_all()
+            if self._witness:
+                _lockdep.note_release(self, self.name)
+
+
+# -- the log --------------------------------------------------------------
+
+class WriteAheadLog:
+    """One directory of `wal-<first-lsn>.log` segments.
+
+    Lifecycle: construct → `replay()` (apply surviving records above
+    the snapshot stamp) → `open()` (start the append side) → serve
+    `logged_apply` from the insert paths → `close()`. `replay` before
+    `open` is deliberate: the replayed records must not re-log
+    themselves, and the next LSN depends on what survived on disk."""
+
+    def __init__(self, directory: str,
+                 sync: Optional[str] = None,
+                 segment_bytes: Optional[int] = None,
+                 clock: Callable[[], float] = time.monotonic) -> None:
+        self.dir = directory
+        os.makedirs(directory, exist_ok=True)
+        self.policy = (default_sync_policy() if sync is None
+                       else SyncPolicy.parse(sync))
+        self.segment_bytes = (
+            env_int("THEIA_WAL_SEGMENT_BYTES", DEFAULT_SEGMENT_BYTES)
+            if segment_bytes is None else int(segment_bytes))
+        if self.segment_bytes < 4096:
+            self.segment_bytes = 4096
+        self._clock = clock
+        self._io = named_lock("wal.io")
+        self._latch = _Latch("wal.latch")
+        self._file = None
+        self._seg_path: Optional[str] = None
+        self._seg_size = 0
+        self._seg_records = 0
+        self._next_lsn = 1
+        self.last_lsn = 0
+        self.synced_lsn = 0
+        #: body checksum of the record at `last_lsn` — the log-matching
+        #: handshake token for cluster replication (a follower whose
+        #: (last_lsn, last_body_crc) matches the leader's frame resumes
+        #: frame shipping; a mismatch means divergent histories →
+        #: wholesale resync). None = unknown (forces resync).
+        self.last_body_crc: Optional[int] = 0
+        self._dirty_records = 0
+        self._dirty_bytes = 0
+        self._last_sync_t = clock()
+        self._replayed_last = 0
+        self._broken: Optional[str] = None
+        self._closed = False
+        self._stop = threading.Event()
+        self._timer: Optional[threading.Thread] = None
+
+    # -- segment bookkeeping ----------------------------------------------
+
+    def _list_segments(self) -> List[Tuple[int, str]]:
+        out = []
+        try:
+            names = os.listdir(self.dir)
+        except OSError:
+            return []
+        for name in names:
+            m = _SEG_RE.match(name)
+            if m:
+                out.append((int(m.group(1)),
+                            os.path.join(self.dir, name)))
+        return sorted(out)
+
+    def _open_segment_locked(self, first_lsn: int) -> None:
+        path = os.path.join(self.dir, f"wal-{first_lsn:016d}.log")
+        self._file = open(path, "ab")
+        if self._file.tell() > 0:
+            # Name collision with a pre-existing segment. It can hold
+            # no replayable records (replay would have advanced
+            # next_lsn past its name otherwise) — e.g. a crash right
+            # after rotation, or a torn tail truncated back to the
+            # header — so start it over rather than appending frames
+            # under a header that may stamp a DIFFERENT checksum algo
+            # (which a later recovery would reject wholesale).
+            self._file.truncate(0)
+            self._file.seek(0)
+        self._file.write(_SEG_HEADER.pack(
+            _SEG_MAGIC, _SEG_VERSION, _WRITE_ALGO, 0, first_lsn))
+        self._file.flush()
+        self._seg_path = path
+        self._seg_size = self._file.tell()
+        self._seg_records = 0
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def open(self, min_next_lsn: int = 1) -> None:
+        """Start the append side. The active segment is always a FRESH
+        one (never an old file reopened for append): recovery may have
+        truncated a torn tail, and a new header is cheaper than every
+        reopen edge case. `min_next_lsn` raises the LSN floor (the
+        snapshot stamp + 1, or a resync peer's position)."""
+        with self._io:
+            if self._file is not None:
+                raise WalError("WAL already open")
+            self._next_lsn = max(min_next_lsn, self._replayed_last + 1,
+                                 self._next_lsn)
+            self.last_lsn = self._next_lsn - 1
+            self.synced_lsn = self.last_lsn
+            self._open_segment_locked(self._next_lsn)
+        if self.policy.mode == "interval":
+            self._timer = threading.Thread(
+                target=self._sync_loop, daemon=True,
+                name="theia-wal-sync")
+            self._timer.start()
+
+    def close(self) -> None:
+        """Final fsync + release (idempotent). Part of the graceful-
+        shutdown drain: everything appended is durable after this."""
+        self._stop.set()
+        if self._timer is not None:
+            self._timer.join(timeout=10)
+            self._timer = None
+        with self._io:
+            self._closed = True
+            if self._file is None:
+                return
+            try:
+                self._file.flush()
+                os.fsync(self._file.fileno())
+                self.synced_lsn = self.last_lsn
+                self._dirty_records = 0
+                self._dirty_bytes = 0
+            except Exception as e:   # incl. ValueError on a handle a
+                logger.error(        # failed rotation already closed
+                    "WAL close fsync failed: %s", e)
+            with contextlib.suppress(Exception):
+                self._file.close()
+            self._file = None
+
+    def _sync_loop(self) -> None:
+        while not self._stop.wait(self.policy.seconds):
+            try:
+                if self._dirty_records:
+                    self.sync()
+            except Exception as e:   # keep the timer alive
+                logger.error("WAL background sync failed: %s", e)
+
+    # -- append side -------------------------------------------------------
+
+    def quiesce(self):
+        """Writer side of the snapshot latch: no append (or its memory
+        apply) is in flight while held."""
+        return self._latch.write()
+
+    def logged_apply(self, table: str, adopted: ColumnarBatch,
+                     apply: Callable[[ColumnarBatch], None],
+                     wire: Optional[memoryview] = None) -> None:
+        """The insert-path hook: append the record, then apply it to
+        memory, atomically with respect to `quiesce()`; then run the
+        sync policy. An append failure propagates BEFORE the memory
+        apply — the row is neither visible nor acknowledged, so a
+        broken log fails inserts instead of silently un-journaling
+        them. `wire` (a received TBLK column section covering exactly
+        these rows) is journaled verbatim instead of re-encoding the
+        adopted batch."""
+        with self._latch.read():
+            self.append(table, adopted, wire=wire)
+            apply(adopted)
+        self._policy_sync()
+
+    def append(self, table: str, batch: ColumnarBatch,
+               wire: Optional[memoryview] = None) -> int:
+        """Append one record; returns its LSN. The frame is written
+        with a single buffered write + flush, so a crash tears at most
+        the tail of this record (which recovery truncates).
+
+        When `wire` is given it must be the TBLK column section (no
+        magic) already encoding `batch`'s rows: the record body
+        becomes table header + those bytes VERBATIM — the zero-copy
+        half of the TBLK ingest path, where producer bytes are
+        checksummed and written without a decode→re-encode round
+        trip. Replay decodes the self-contained section exactly like
+        a locally-encoded record."""
+        _fire_fault("wal.append", table=table, dir=self.dir)
+        # Encode + bulk checksum OUTSIDE the I/O lock: concurrent
+        # inserts overlap the expensive part; only LSN assignment and
+        # the writes serialize.
+        if wire is not None:
+            parts: List = [pack_table_header(table), wire]
+        else:
+            parts = encode_record_parts(table, batch)
+        body_len = sum(len(p) for p in parts)
+        body_crc = 0
+        for p in parts:
+            body_crc = _write_crc(p, body_crc)
+        body_crc &= 0xFFFFFFFF
+        with self._io:
+            if self._closed:
+                raise WalError("WAL is closed")
+            if self._broken is not None:
+                raise WalError(
+                    f"WAL broken by earlier write failure: "
+                    f"{self._broken}")
+            if self._file is None:
+                raise WalError("WAL not open (call open() first)")
+            frame_len = _FRAME.size + body_len
+            if (self._seg_records
+                    and self._seg_size + frame_len > self.segment_bytes):
+                self._rotate_locked()
+            lsn = self._next_lsn
+            head = _FRAME_HEAD.pack(body_len, body_crc, lsn)
+            head_crc = _write_crc(head, 0) & 0xFFFFFFFF
+            pre = self._seg_size
+            try:
+                self._file.write(head)
+                self._file.write(struct.pack("<I", head_crc))
+                for p in parts:
+                    self._file.write(p)
+                self._file.flush()
+            except Exception as e:
+                # Roll the partial frame back; if even that fails the
+                # log is poisoned and must refuse further appends (a
+                # garbage gap would silently end every future replay
+                # at this offset).
+                try:
+                    self._file.truncate(pre)
+                    self._file.seek(pre)
+                except OSError:
+                    self._broken = f"{type(e).__name__}: {e}"
+                raise
+            self._seg_size += frame_len
+            self._seg_records += 1
+            self._next_lsn = lsn + 1
+            self.last_lsn = lsn
+            self.last_body_crc = body_crc
+            self._dirty_records += 1
+            self._dirty_bytes += frame_len
+        _M_APPENDED.inc(frame_len)
+        return lsn
+
+    def _rotate_locked(self) -> None:
+        """Seal the active segment (fsync unless policy=never) and
+        start the next one at the upcoming LSN. A failure opening the
+        next segment (ENOSPC, EMFILE) poisons the log explicitly —
+        leaving the closed handle in place would make every later
+        append die with a bare 'I/O operation on closed file' that
+        nothing maps back to the rotation failure."""
+        _fire_fault("wal.rotate", segment=self._seg_path)
+        self._file.flush()
+        if self.policy.mode != "never":
+            os.fsync(self._file.fileno())
+            self.synced_lsn = self.last_lsn
+            self._dirty_records = 0
+            self._dirty_bytes = 0
+        self._file.close()
+        try:
+            self._open_segment_locked(self._next_lsn)
+        except Exception as e:
+            self._file = None
+            self._broken = f"segment rotation failed: {e}"
+            raise WalError(self._broken)
+
+    def _policy_sync(self) -> None:
+        if self.policy.mode == "always":
+            self.sync()
+        elif (self.policy.mode == "interval" and self._dirty_records
+                and self._clock() - self._last_sync_t
+                >= self.policy.seconds):
+            self.sync()
+
+    def sync(self) -> None:
+        """Flush + fsync the active segment (the durability point)."""
+        _fire_fault("wal.fsync", dir=self.dir)
+        with self._io:
+            self._last_sync_t = self._clock()
+            if self._file is None or not self._dirty_records:
+                return
+            t0 = time.perf_counter()
+            self._file.flush()
+            os.fsync(self._file.fileno())
+            dt = time.perf_counter() - t0
+            self.synced_lsn = self.last_lsn
+            self._dirty_records = 0
+            self._dirty_bytes = 0
+        _M_FSYNC.observe(dt)
+
+    def reposition(self, last_lsn: int) -> None:
+        """Jump the LSN sequence forward to `last_lsn` (a resync peer's
+        position): the replica's memory now reflects everything up to
+        that LSN, so its next append must land above it. Leaves a gap
+        in this log — recovery detects it and prefers an ungapped peer
+        until a checkpoint GCs the stale segments."""
+        with self._io:
+            if self._file is None:
+                raise WalError("WAL not open")
+            if last_lsn + 1 <= self._next_lsn:
+                return
+            self._file.flush()
+            if self.policy.mode != "never":
+                os.fsync(self._file.fileno())
+            self._file.close()
+            self._next_lsn = last_lsn + 1
+            self.last_lsn = last_lsn
+            self.synced_lsn = last_lsn
+            # the record AT last_lsn lives in a peer's log, not this
+            # one — unknown until something lands here (a cluster
+            # follower's resync sets it from the leader's token)
+            self.last_body_crc = None
+            self._dirty_records = 0
+            self._dirty_bytes = 0
+            self._open_segment_locked(self._next_lsn)
+
+    # -- recovery ----------------------------------------------------------
+
+    def replay(self, apply: Callable[[str, ColumnarBatch], None],
+               above_lsn: int = 0) -> Dict[str, object]:
+        """Apply every decodable record with LSN > `above_lsn`, in log
+        order. A torn tail (truncated/bad frame at the end of the LAST
+        segment) is physically truncated away; a bad frame in an
+        earlier segment drops the remainder of that segment only.
+        Returns recovery stats (and logs them): recovered vs dropped
+        is always exact and loud, never silent."""
+        stats: Dict[str, object] = {
+            "recoveredRows": 0, "recoveredRecords": 0,
+            "skippedRecords": 0, "droppedRecords": 0,
+            "droppedBytes": 0, "tornTail": False, "gapped": False,
+            "lastLsn": 0, "aboveLsn": int(above_lsn),
+        }
+        segs = self._list_segments()
+        state = {"prev": None, "first": None, "crc": None}
+        for si, (first, path) in enumerate(segs):
+            last_seg = si == len(segs) - 1
+            self._replay_segment(path, last_seg, above_lsn, stats,
+                                 state, apply)
+        if state["crc"] is not None:
+            # handshake token: the physical last frame's body checksum
+            self.last_body_crc = int(state["crc"])
+        if (state["first"] is not None and above_lsn
+                and state["first"] > above_lsn + 1):
+            # records between the snapshot stamp and the oldest
+            # surviving segment are missing entirely
+            stats["gapped"] = True
+        self._replayed_last = int(stats["lastLsn"])
+        if stats["recoveredRows"]:
+            _M_RECOVERED.inc(stats["recoveredRows"])
+        level = (logger.warning if (stats["droppedRecords"]
+                                    or stats["tornTail"]
+                                    or stats["gapped"])
+                 else logger.info)
+        level(
+            "WAL %s: recovered %d rows in %d records above LSN %d "
+            "(%d records below the snapshot skipped); dropped %d "
+            "records / %d bytes%s%s", self.dir,
+            stats["recoveredRows"], stats["recoveredRecords"],
+            above_lsn, stats["skippedRecords"],
+            stats["droppedRecords"], stats["droppedBytes"],
+            " [torn tail truncated]" if stats["tornTail"] else "",
+            " [GAPPED: records missing above the snapshot]"
+            if stats["gapped"] else "")
+        return stats
+
+    def _replay_segment(self, path: str, last_seg: bool,
+                        above_lsn: int, stats: Dict[str, object],
+                        state: Dict[str, Optional[int]],
+                        apply) -> None:
+        prev_lsn = state["prev"]
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except OSError as e:
+            logger.error("WAL segment %s unreadable: %s", path, e)
+            stats["droppedRecords"] = int(stats["droppedRecords"]) + 1
+            return
+        off = _SEG_HEADER.size
+        if len(data) < _SEG_HEADER.size:
+            self._drop_rest(path, data, 0, last_seg, stats,
+                            "short segment header")
+            return
+        magic, ver, algo, _, _first = _SEG_HEADER.unpack_from(data, 0)
+        if magic != _SEG_MAGIC or ver != _SEG_VERSION:
+            self._drop_rest(path, data, 0, last_seg, stats,
+                            "bad segment magic/version")
+            return
+        crc_fn = _checksum_fn(algo)
+        if crc_fn is None:
+            logger.warning(
+                "WAL segment %s uses checksum algo %d (crc32c) but no "
+                "crc32c module is importable: records applied "
+                "UNVERIFIED", path, algo)
+        n_records = 0
+        while off < len(data):
+            if off + _FRAME.size > len(data):
+                self._drop_rest(path, data, off, last_seg, stats,
+                                "truncated frame header")
+                break
+            blen, body_crc, lsn, head_crc = _FRAME.unpack_from(data,
+                                                              off)
+            head = data[off:off + _FRAME_HEAD.size]
+            if crc_fn is not None and \
+                    (crc_fn(head, 0) & 0xFFFFFFFF) != head_crc:
+                self._drop_rest(path, data, off, last_seg, stats,
+                                "frame header checksum mismatch")
+                break
+            if blen > MAX_RECORD_BYTES \
+                    or off + _FRAME.size + blen > len(data):
+                self._drop_rest(path, data, off, last_seg, stats,
+                                f"bad frame length {blen}")
+                break
+            body = data[off + _FRAME.size:off + _FRAME.size + blen]
+            if crc_fn is not None and \
+                    (crc_fn(body, 0) & 0xFFFFFFFF) != body_crc:
+                self._drop_rest(path, data, off, last_seg, stats,
+                                "checksum mismatch")
+                break
+            if state["first"] is None:
+                state["first"] = lsn
+            n_records += 1
+            if prev_lsn is not None and lsn != prev_lsn + 1 \
+                    and lsn > above_lsn:
+                stats["gapped"] = True
+            prev_lsn = lsn
+            stats["lastLsn"] = max(int(stats["lastLsn"]), lsn)
+            state["crc"] = body_crc
+            if lsn <= above_lsn:
+                # already covered by the snapshot: the frame is
+                # CRC-verified above but NOT decoded — recovery over
+                # a long not-yet-GC'd tail pays checksums, not
+                # dictionary rebuilds (manifest-based recovery made
+                # this the dominant cost)
+                stats["skippedRecords"] = \
+                    int(stats["skippedRecords"]) + 1
+            else:
+                try:
+                    table, batch = decode_record_body(body)
+                except WalCorruption as e:
+                    self._drop_rest(path, data, off, last_seg, stats,
+                                    str(e))
+                    break
+                apply(table, batch)
+                stats["recoveredRecords"] = \
+                    int(stats["recoveredRecords"]) + 1
+                stats["recoveredRows"] = \
+                    int(stats["recoveredRows"]) + len(batch)
+            off += _FRAME.size + blen
+        state["prev"] = prev_lsn
+
+    def _drop_rest(self, path: str, data: bytes, off: int,
+                   last_seg: bool, stats: Dict[str, object],
+                   why: str) -> None:
+        dropped = len(data) - off
+        stats["droppedBytes"] = int(stats["droppedBytes"]) + dropped
+        stats["droppedRecords"] = int(stats["droppedRecords"]) + 1
+        if last_seg:
+            # torn tail: keep the valid prefix, physically drop the
+            # garbage so future replays (and appenders) never see it
+            stats["tornTail"] = True
+            _M_TORN.inc()
+            try:
+                with open(path, "r+b") as f:
+                    f.truncate(off)
+                logger.warning(
+                    "WAL %s: torn tail truncated at byte %d (%d bytes "
+                    "dropped): %s", path, off, dropped, why)
+            except OSError as e:
+                logger.error("WAL %s: failed to truncate torn tail: "
+                             "%s", path, e)
+        else:
+            logger.error(
+                "WAL %s: dropping remainder of segment at byte %d "
+                "(%d bytes): %s — recovery continues with the next "
+                "segment", path, off, dropped, why)
+
+    # -- log shipping (leader read side / follower write side) -------------
+
+    def read_frames(self, above_lsn: int,
+                    max_bytes: int = 1 << 20
+                    ) -> Tuple[bytes, int, int]:
+        """Raw frames with LSN > `above_lsn`, up to ~`max_bytes` (at
+        least one frame when any exists) — the replication shipper's
+        read side. Returns (frames, last_lsn_shipped, checksum_algo);
+        empty frames means the follower is caught up. Raises
+        WalShipGap when the oldest surviving record is already past
+        `above_lsn + 1` (GC collected the covering segments): the
+        follower must resync wholesale instead. Reading races appends
+        safely — the walk stops at the first incomplete frame (the
+        appender's userspace buffer may spill mid-record)."""
+        with self._io:
+            segs = self._list_segments()
+        if not segs:
+            return b"", int(above_lsn), _WRITE_ALGO
+        # start at the last segment that can contain above_lsn + 1
+        start = 0
+        for i, (first, _) in enumerate(segs):
+            if first <= above_lsn + 1:
+                start = i
+        if segs[start][0] > above_lsn + 1:
+            raise WalShipGap(
+                f"oldest surviving WAL record is LSN {segs[start][0]} "
+                f"but the follower needs {above_lsn + 1} — covering "
+                f"segments were checkpoint-GCed; resync required")
+        out: List[bytes] = []
+        size = 0
+        last = int(above_lsn)
+        ship_algo: Optional[int] = None
+        for first, path in segs[start:]:
+            try:
+                with open(path, "rb") as f:
+                    data = f.read()
+            except OSError:
+                break
+            if len(data) < _SEG_HEADER.size:
+                break
+            magic, ver, algo, _, _f = _SEG_HEADER.unpack_from(data, 0)
+            if magic != _SEG_MAGIC or ver != _SEG_VERSION:
+                break
+            if ship_algo is None:
+                ship_algo = algo
+            elif algo != ship_algo and out:
+                # one ship batch carries ONE checksum algo; a mixed-
+                # algo log (crc32c module came/went across restarts)
+                # ships the remainder on the next call
+                break
+            for lsn, frame, _body in iter_frames(
+                    data[_SEG_HEADER.size:], algo):
+                if lsn <= above_lsn:
+                    continue
+                if lsn != last + 1 and last != above_lsn:
+                    # a gap INSIDE the shipped range (reposition after
+                    # resync): stop here; the follower acks what it
+                    # got and the next read re-evaluates
+                    return (b"".join(out), last,
+                            ship_algo if ship_algo is not None
+                            else _WRITE_ALGO)
+                out.append(frame)
+                size += len(frame)
+                last = lsn
+                if size >= max_bytes:
+                    return b"".join(out), last, ship_algo
+        return (b"".join(out), last,
+                ship_algo if ship_algo is not None else _WRITE_ALGO)
+
+    def shipped_apply(self, lsn: int, frame: bytes, body: bytes,
+                      sender_algo: int,
+                      apply: Callable[[], None]) -> bool:
+        """Log-shipping twin of `logged_apply`: append one PRE-FRAMED
+        record verbatim — preserving its leader-assigned LSN, so the
+        follower's log stays a byte-identical continuation of the
+        leader's and standard replay recovers the follower to an exact
+        leader position — then run the memory apply, atomically with
+        respect to quiesce(). A frame at or below `last_lsn` is a
+        duplicate ship after a reconnect: skipped, returns False. A
+        frame that would leave a gap raises WalError (the shipper must
+        not skip records). The caller runs the sync policy once per
+        shipped batch via `policy_sync()`."""
+        # the HANDSHAKE token must be the sender-algo checksum (the
+        # leader compares against its own frame), even when the frame
+        # is re-framed under our algo for the on-disk copy below
+        sender_crc = _FRAME.unpack_from(frame, 0)[1]
+        if sender_algo != _WRITE_ALGO:
+            # our segment header stamps OUR algo — re-frame so the
+            # checksums on disk match it
+            frame = build_frame(bytes(body), lsn)
+        with self._latch.read():
+            with self._io:
+                if self._closed:
+                    raise WalError("WAL is closed")
+                if self._broken is not None:
+                    raise WalError(
+                        f"WAL broken by earlier write failure: "
+                        f"{self._broken}")
+                if self._file is None:
+                    raise WalError("WAL not open (call open() first)")
+                if lsn <= self.last_lsn:
+                    return False
+                if lsn != self._next_lsn:
+                    raise WalError(
+                        f"shipped frame LSN {lsn} would leave a gap "
+                        f"(next expected {self._next_lsn})")
+                if (self._seg_records and
+                        self._seg_size + len(frame)
+                        > self.segment_bytes):
+                    self._rotate_locked()
+                pre = self._seg_size
+                try:
+                    self._file.write(frame)
+                    self._file.flush()
+                except Exception as e:
+                    try:
+                        self._file.truncate(pre)
+                        self._file.seek(pre)
+                    except OSError:
+                        self._broken = f"{type(e).__name__}: {e}"
+                    raise
+                self._seg_size += len(frame)
+                self._seg_records += 1
+                self._next_lsn = lsn + 1
+                self.last_lsn = lsn
+                self.last_body_crc = sender_crc
+                self._dirty_records += 1
+                self._dirty_bytes += len(frame)
+            apply()
+        _M_APPENDED.inc(len(frame))
+        return True
+
+    def policy_sync(self) -> None:
+        """Run the sync policy once (the shipped-batch ack point)."""
+        self._policy_sync()
+
+    def body_crc_at(self, lsn: int) -> Optional[int]:
+        """Body checksum of the record at `lsn`, or None when this log
+        no longer holds it (GC) — the leader's side of the log-matching
+        handshake."""
+        if lsn <= 0:
+            return 0
+        try:
+            frames, last, _algo = self.read_frames(lsn - 1,
+                                                   max_bytes=1)
+        except WalShipGap:
+            return None
+        if not frames:
+            return None
+        blen, body_crc, got, _hcrc = _FRAME.unpack_from(frames, 0)
+        return body_crc if got == lsn else None
+
+    def reset_to(self, last_lsn: int,
+                 last_body_crc: Optional[int] = None) -> None:
+        """Discard every record and restart the sequence at
+        `last_lsn + 1` — the follower's wholesale-resync landing: its
+        surviving records no longer describe its memory (which was
+        just replaced by the leader's copy), so they are removed, and
+        the handshake token is set from the leader's. The caller has
+        already extracted any divergent tail it intends to re-ingest.
+        NOTE the resync'd memory itself is NOT in this log — until the
+        next checkpoint covers it, a crash re-runs the resync (loud,
+        correct, wasteful — the documented window)."""
+        with self._io:
+            if self._file is None:
+                raise WalError("WAL not open")
+            self._file.close()
+            for _, path in self._list_segments():
+                with contextlib.suppress(OSError):
+                    os.unlink(path)
+            self._next_lsn = int(last_lsn) + 1
+            self.last_lsn = int(last_lsn)
+            self.synced_lsn = int(last_lsn)
+            self.last_body_crc = last_body_crc
+            self._dirty_records = 0
+            self._dirty_bytes = 0
+            self._open_segment_locked(self._next_lsn)
+
+    # -- maintenance -------------------------------------------------------
+
+    def gc_below(self, lsn: int) -> int:
+        """Remove segments whose every record has LSN ≤ `lsn` (i.e.
+        wholly covered by a durable snapshot stamped at `lsn`). The
+        active segment is never removed. Returns segments deleted."""
+        removed = 0
+        with self._io:
+            segs = self._list_segments()
+            for (first, path), (next_first, _) in zip(segs, segs[1:]):
+                if path == self._seg_path:
+                    break
+                if next_first <= lsn + 1:
+                    try:
+                        os.unlink(path)
+                        removed += 1
+                    except OSError as e:
+                        logger.error("WAL gc failed for %s: %s",
+                                     path, e)
+                else:
+                    break
+        if removed:
+            logger.v(1).info("WAL %s: gc removed %d segments below "
+                             "LSN %d", self.dir, removed, lsn)
+        return removed
+
+    @property
+    def lag_records(self) -> int:
+        """Records appended but not yet fsynced (the syncedLsn lag) —
+        cheap enough for the admission plane to poll per request,
+        unlike stats() which walks the segment directory."""
+        return self._dirty_records
+
+    def stats(self) -> Dict[str, object]:
+        """Health surface (served under /healthz `wal`)."""
+        segs = self._list_segments()
+        size = 0
+        for _, path in segs:
+            try:
+                size += os.path.getsize(path)
+            except OSError:
+                pass
+        return {
+            "dir": self.dir,
+            "policy": str(self.policy),
+            "segments": len(segs),
+            "bytes": size,
+            "lastLsn": self.last_lsn,
+            "syncedLsn": self.synced_lsn,
+            "lagRecords": self._dirty_records,
+            "lagBytes": self._dirty_bytes,
+        }
+
+
+# -- log shipping (cluster replication) -----------------------------------
+
+def iter_frames(data: bytes, algo: int):
+    """Walk a buffer of raw shipped frames, yielding (lsn, frame_bytes,
+    body) for each complete, checksum-valid frame and stopping at the
+    first truncated/invalid one (a reader racing the appender sees a
+    clean prefix, never garbage). `algo` is the sender's checksum
+    algorithm (its segment header / ship envelope); an unverifiable
+    algo (crc32c frames without the module) is walked structurally,
+    matching replay's applied-unverified behavior."""
+    crc_fn = _checksum_fn(algo)
+    off, n = 0, len(data)
+    while off + _FRAME.size <= n:
+        blen, body_crc, lsn, head_crc = _FRAME.unpack_from(data, off)
+        if crc_fn is not None and (crc_fn(
+                data[off:off + _FRAME_HEAD.size], 0)
+                & 0xFFFFFFFF) != head_crc:
+            return
+        if blen > MAX_RECORD_BYTES or off + _FRAME.size + blen > n:
+            return
+        body = data[off + _FRAME.size:off + _FRAME.size + blen]
+        if crc_fn is not None and \
+                (crc_fn(body, 0) & 0xFFFFFFFF) != body_crc:
+            return
+        yield lsn, data[off:off + _FRAME.size + blen], body
+        off += _FRAME.size + blen
+
+
+def build_frame(body: bytes, lsn: int) -> bytes:
+    """Frame one record body under THIS process's checksum algorithm —
+    re-framing shipped records whose sender used a different algo, and
+    framing resync/export record bodies for the ship envelope."""
+    body_crc = _write_crc(body, 0) & 0xFFFFFFFF
+    head = _FRAME_HEAD.pack(len(body), body_crc, lsn)
+    head_crc = _write_crc(head, 0) & 0xFFFFFFFF
+    return head + struct.pack("<I", head_crc) + body
+
+
+def orphan_segments(directory: str) -> List[str]:
+    """Rename every segment in `directory` to `<name>.orphaned` so no
+    scan (replay, GC, adoption) ever touches it again, preserving the
+    bytes for operator forensics. Used when a store's snapshot lineage
+    broke — a non-empty snapshot with NO WAL stamp next to surviving
+    segments (a run with --wal-dir off saved over a journaled store):
+    there is no LSN that partitions those records into in-snapshot vs
+    to-replay, so replaying would duplicate and deleting would
+    destroy evidence."""
+    renamed: List[str] = []
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return renamed
+    for name in sorted(names):
+        if _SEG_RE.match(name):
+            p = os.path.join(directory, name)
+            try:
+                os.rename(p, p + ".orphaned")
+                renamed.append(p)
+            except OSError as e:
+                logger.error("failed to orphan WAL segment %s: %s",
+                             p, e)
+    return renamed
+
+
+# -- cross-topology adoption ----------------------------------------------
+
+_SHARD_DIR_RE = re.compile(r"^shard-(\d+)$")
+_REPLICA_DIR_RE = re.compile(r"^replica-(\d+)$")
+
+
+def scan_positions(directory: str) -> Dict[str, object]:
+    """Cheap frame-header walk over a log directory — reads only the
+    24-byte frame headers and SEEKS over bodies, so ranking replica
+    copies costs O(records), not O(log bytes): (first LSN, last LSN,
+    gapped)."""
+    first: Optional[int] = None
+    last = 0
+    gapped = False
+    prev: Optional[int] = None
+    for seg_first, path in sorted(
+            (int(m.group(1)), os.path.join(directory, n))
+            for n in os.listdir(directory)
+            for m in (_SEG_RE.match(n),) if m):
+        try:
+            size = os.path.getsize(path)
+            with open(path, "rb") as f:
+                head = f.read(_SEG_HEADER.size)
+                if len(head) < _SEG_HEADER.size:
+                    continue
+                magic, ver, algo, _, _f = _SEG_HEADER.unpack(head)
+                if magic != _SEG_MAGIC or ver != _SEG_VERSION:
+                    continue
+                crc_fn = _checksum_fn(algo)
+                off = _SEG_HEADER.size
+                while off + _FRAME.size <= size:
+                    frame = f.read(_FRAME.size)
+                    if len(frame) < _FRAME.size:
+                        break
+                    blen, _bcrc, lsn, hcrc = _FRAME.unpack(frame)
+                    if crc_fn is not None and (crc_fn(
+                            frame[:_FRAME_HEAD.size], 0)
+                            & 0xFFFFFFFF) != hcrc:
+                        break
+                    if blen > MAX_RECORD_BYTES \
+                            or off + _FRAME.size + blen > size:
+                        break
+                    if first is None:
+                        first = lsn
+                    if prev is not None and lsn != prev + 1:
+                        gapped = True
+                    prev = lsn
+                    last = max(last, lsn)
+                    off += _FRAME.size + blen
+                    f.seek(off)
+        except OSError:
+            continue
+    return {"first": first, "last": last, "gapped": gapped}
+
+
+def _replay_dir_logically(db, path: str, stamp: int) -> int:
+    """Replay one foreign log dir through the db's LOGICAL insert path
+    with the (already attached) WAL hooks ON — rows re-journal under
+    the new topology — then fsync the new log and remove the stale
+    segments. The sync-before-unlink order means a crash can never
+    LOSE adopted rows (they are durable in one log or the other);
+    the residual is duplication — a kill -9 after the sync but before
+    the unlinks re-adopts the rows at the next startup. Adoption is a
+    rare, operator-driven topology change, and the window is logged."""
+    logger.warning(
+        "adopting WAL %s from a previous store topology (replaying "
+        "above LSN %d through the logical insert path; a crash "
+        "before this dir is removed re-adopts — duplicates — these "
+        "rows)", path, stamp)
+    scanner = WriteAheadLog(path, sync="never")
+
+    def apply(table, batch):
+        table, tag = split_dedup_tag(table)
+        if tag is not None:
+            # preserve the producer identity across the topology
+            # change: the re-journaled record keeps its tag, and the
+            # recovered ack seeds the new manager's dedup window
+            note = getattr(db, "note_recovered_ack", None)
+            if callable(note):
+                note(tag[0], tag[1], len(batch), tag[2])
+        if table == "flows":
+            if tag is not None:
+                db.insert_flows(batch, dedup=tag)
+            else:
+                db.insert_flows(batch)
+        elif table in db.result_tables:
+            db.result_tables[table].insert(batch)
+        else:
+            logger.error("foreign WAL record for unknown table %r "
+                         "dropped (%d rows)", table, len(batch))
+    st = scanner.replay(apply, above_lsn=stamp)
+    sync = getattr(db, "wal_sync", None)
+    if callable(sync):
+        sync()
+    for _, seg in scanner._list_segments():
+        with contextlib.suppress(OSError):
+            os.unlink(seg)
+    return int(st["recoveredRows"])
+
+
+def _remove_log_dir(path: str) -> None:
+    try:
+        for name in os.listdir(path):
+            if _SEG_RE.match(name) or _SHARD_DIR_RE.match(name):
+                p = os.path.join(path, name)
+                if os.path.isdir(p):
+                    _remove_log_dir(p)
+                else:
+                    with contextlib.suppress(OSError):
+                        os.unlink(p)
+        os.rmdir(path)
+    except OSError:
+        pass
+
+
+def adopt_foreign_wal_dirs(db, root: str, own: List[str],
+                           stamps: List[int],
+                           replica_copies: bool = True,
+                           own_position: Optional[int] = None) -> int:
+    """Replay WAL content left by a DIFFERENT store topology (e.g. the
+    previous run used --shards 4, this one uses 2: shard-002/003 logs
+    would otherwise be silently orphaned — acknowledged rows lost).
+
+    Two candidate classes, with opposite semantics:
+
+    * `shard-*` subdirs (and stray segments in `root` itself) are
+      disjoint PARTITIONS of the logical store: every one replays.
+      Per-shard snapshot stamps apply by index.
+    * `replica-*` subdirs are COPIES of the whole logical store:
+      exactly ONE — the most-advanced contiguous (ungapped) one —
+      replays, and every replica dir is then removed; replaying more
+      than one would duplicate every acknowledged row. A replica dir
+      may itself contain `shard-*` partitions (a sharded-replicated
+      run); those replay with their per-shard stamps.
+
+    `replica_copies=False` (the replicated caller, whose OWN replica
+    logs already carry the logical store): stray replica dirs are not
+    replayed at all — they are redundant copies of what the live
+    replicas recovered — just removed, unless one is AHEAD of
+    `own_position` (both replicas quarantined before the crash), in
+    which case it is left on disk with a loud error for the operator.
+
+    Rows re-journal through the attached WAL as they replay, and the
+    stale files are removed. Returns rows adopted."""
+    own_real = {os.path.realpath(p) for p in own}
+    shard_dirs: List[Tuple[str, int]] = []
+    replica_dirs: List[str] = []
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return 0
+    for name in sorted(names):
+        p = os.path.join(root, name)
+        if not os.path.isdir(p) or os.path.realpath(p) in own_real:
+            continue
+        m = _SHARD_DIR_RE.match(name)
+        if m:
+            idx = int(m.group(1))
+            shard_dirs.append(
+                (p, stamps[idx] if idx < len(stamps) else 0))
+        elif _REPLICA_DIR_RE.match(name):
+            replica_dirs.append(p)
+    rows = 0
+    if os.path.realpath(root) not in own_real and \
+            any(_SEG_RE.match(n) for n in names):
+        rows += _replay_dir_logically(db, root,
+                                      stamps[0] if stamps else 0)
+    for path, stamp in shard_dirs:
+        rows += _replay_dir_logically(db, path, stamp)
+        with contextlib.suppress(OSError):
+            os.rmdir(path)
+    if replica_dirs and not replica_copies:
+        for p in replica_dirs:
+            subs = [os.path.join(p, n) for n in os.listdir(p)
+                    if _SHARD_DIR_RE.match(n)
+                    and os.path.isdir(os.path.join(p, n))]
+            last = sum(int(scan_positions(s)["last"])
+                       for s in (subs or [p]))
+            st = {"last": last}
+            if own_position is not None and \
+                    int(st["last"]) > own_position:
+                logger.error(
+                    "stray replica WAL %s is AHEAD of every live "
+                    "replica (last LSN %d > %d) — left on disk for "
+                    "operator recovery, NOT removed",
+                    p, int(st["last"]), own_position)
+                continue
+            logger.warning(
+                "removing stray replica WAL %s (a redundant copy of "
+                "what the live replicas recovered; last LSN %d)",
+                p, int(st["last"]))
+            _remove_log_dir(p)
+    elif replica_dirs:
+        def rank(path: str):
+            subs = sorted(
+                os.path.join(path, n) for n in os.listdir(path)
+                if _SHARD_DIR_RE.match(n)
+                and os.path.isdir(os.path.join(path, n)))
+            scans = [scan_positions(s) for s in (subs or [path])]
+            gapped = any(s["gapped"] for s in scans)
+            return (not gapped, sum(int(s["last"]) for s in scans),
+                    subs)
+        ranked = {p: rank(p) for p in replica_dirs}
+        best = max(replica_dirs, key=lambda p: ranked[p][:2])
+        logger.warning(
+            "found %d replica WAL copies under %s; adopting only the "
+            "most-advanced contiguous one (%s) — replicas are copies, "
+            "replaying more than one would duplicate rows",
+            len(replica_dirs), root, best)
+        subs = ranked[best][2]
+        if subs:
+            for sub in subs:
+                idx = int(_SHARD_DIR_RE.match(
+                    os.path.basename(sub)).group(1))
+                rows += _replay_dir_logically(
+                    db, sub, stamps[idx] if idx < len(stamps) else 0)
+        else:
+            rows += _replay_dir_logically(db, best,
+                                          stamps[0] if stamps else 0)
+        for p in replica_dirs:
+            _remove_log_dir(p)
+    return rows
