@@ -16,7 +16,13 @@ on the card:
     points; its kernel is B2 (csrc/dbscan_noise.cu, DBSCAN);
   * the manager: both paths again as users reach them, POST /ingest
     (B1) and TAD jobs through the intelligence API (B2), served by
-    `python -m theia_tpu_torch.manager`.
+    `python -m theia_tpu_torch.manager`;
+  * the jobs slice through the same manager's API: NPR (the device
+    DISTINCT over 1,048,576 rows), pattern mining, spatial DBSCAN over
+    all 1,048,576 flows, and drop detection over a month of dropped
+    flows. No Pallas kernel stands behind them: their device work is
+    torch ops (sorts, scatter-adds, a blocked float32 matmul, masked
+    means).
 
 Each phase prints one JSON line; any failure raises and the script
 exits non-zero. The last line of standard output is
@@ -32,10 +38,12 @@ the TAD path; TAD card vs CPU parity; then the manager slice: the
 port's manager started through its entry point's main() (POST /ingest
 from four producer streams through admission, dedup, the WAL, the
 parts store and the fused engine), its one-stream parity against the
-CPU, the TAD jobs through the intelligence API, a SIGKILL and restart
-of `python -m theia_tpu_torch.manager` on its WAL, and the working-set
-state tier against an unbounded run; then the kernels line, the
-card's name and power limit, and the result line.
+CPU, the TAD jobs through the intelligence API, then on the same
+manager the NPR, FPM, SAD and DD jobs (manager_jobs) each held against
+the port on the CPU (jobs_parity), a SIGKILL and restart of `python
+-m theia_tpu_torch.manager` on its WAL, and the working-set state tier
+against an unbounded run; then the kernels line, the card's name and
+power limit, and the result line.
 Imports nothing of JAX and nothing of the JAX package. Writes under
 the package's _build/ directories and, for the managers' WALs and
 parts, in temporary directories it removes.
@@ -1125,8 +1133,8 @@ def build_kernels() -> dict:
 
 # -- the manager slice --------------------------------------------------
 
-INTELLIGENCE = ("/apis/intelligence.theia.antrea.io/v1alpha1/"
-                "throughputanomalydetectors")
+GROUP = "/apis/intelligence.theia.antrea.io/v1alpha1"
+INTELLIGENCE = f"{GROUP}/throughputanomalydetectors"
 TABLE_INFO = "/apis/stats.theia.antrea.io/v1alpha1/clickhouse/tableInfo"
 #: connection alerts the manager's ring keeps (manager/ingest.py)
 RING = 1000
@@ -1526,7 +1534,8 @@ def phase_manager_tad(blocks, flows, device) -> dict:
     """The TAD configuration's flows through /ingest of the port's
     manager, then one EWMA and one DBSCAN job created, polled and
     retrieved through the intelligence API; B2's count set to 0 just
-    before the DBSCAN job and read just after."""
+    before the DBSCAN job and read just after. Then the jobs slice on
+    the same manager and store (drive_jobs)."""
     import tempfile
     from theia_tpu_torch.ops import dbscan
 
@@ -1548,6 +1557,8 @@ def phase_manager_tad(blocks, flows, device) -> dict:
                 "result_rows": len(rows), "b2_launches": launches,
                 "missed_spikes": missed_spikes(flows, TAD_SERIES,
                                                api_rows(rows))}
+        # the jobs slice on the same manager and store
+        out["manager_jobs"], out["jobs_parity"] = drive_jobs(port, device)
         return out
 
     with tempfile.TemporaryDirectory(prefix="theia-manager-tad-") as tmp:
@@ -1745,6 +1756,541 @@ def phase_state_tier(device) -> dict:
     return out
 
 
+# -- the jobs slice: NPR, pattern mining, spatial, drop detection --------
+
+#: spatial DBSCAN's float32 band: a pair whose float64 d² lies within
+#: this share of |x|²+|y|² of eps² can fall either way between two
+#: float32 evaluations of |x|²+|y|²−2x·y (eight ulps of the operands)
+EPS_BAND = 2.0 ** -20
+
+
+def _recount_rows(p64, sq, rows, eps2: float, min_samples: int,
+                  chunk: int):
+    """For each of `rows`: its exact neighbour count (self included),
+    whether any of its pairs lies in the band, and its neighbours (row
+    indices, kept only for non-core rows: fewer than min_samples)."""
+    import torch
+    counts = [torch.zeros(0, dtype=torch.int64, device=p64.device)]
+    band = [torch.zeros(0, dtype=torch.bool, device=p64.device)]
+    nbrs = []
+    for i in range(0, len(rows), chunk):
+        r = rows[i:i + chunk]
+        d2 = torch.zeros((len(r), p64.shape[0]), dtype=torch.float64,
+                         device=p64.device)
+        for f in range(p64.shape[1]):
+            diff = p64[r, f][:, None] - p64[None, :, f]
+            d2 += diff * diff
+        within = d2 <= eps2
+        slack = EPS_BAND * (sq[r][:, None] + sq[None, :])
+        counts.append(within.sum(1))
+        band.append(((d2 - eps2).abs() <= slack).any(1))
+        few = (within.sum(1) < min_samples).tolist()
+        nbrs.extend(within[k].nonzero()[:, 0] if few[k] else None
+                    for k in range(len(r)))
+    return torch.cat(counts), torch.cat(band), nbrs
+
+
+def points_recount(points, rows, eps: float, min_samples: int,
+                   chunk: int = 64):
+    """Exact noise flags, in float64, of points[rows] among all [N, F]
+    `points` (on any device), and which of them are ambiguous for a
+    float32 evaluation: a point with a pair in the EPS_BAND of eps², or
+    a non-core point with a neighbour that has one (its flag reads that
+    neighbour's core flag). Returns two bool tensors over `rows`, on
+    the CPU."""
+    import torch
+    p64 = points.to(torch.float64)
+    sq = (p64 * p64).sum(1)
+    eps2 = float(eps) * float(eps)
+    rows = torch.as_tensor(rows, device=points.device)
+    count, band, nbrs = _recount_rows(p64, sq, rows, eps2, min_samples,
+                                      chunk)
+    core = (count >= min_samples).cpu()
+    band = band.cpu()
+    # a non-core point has fewer than min_samples neighbours: its
+    # flag reads their core flags, recounted the same way
+    need = sorted({int(j) for k in range(len(rows)) if not core[k]
+                   for j in nbrs[k].tolist()})
+    j_count, j_band, _ = _recount_rows(
+        p64, sq, torch.tensor(need, dtype=torch.long, device=p64.device),
+        eps2, min_samples, chunk)
+    j_core = dict(zip(need, (j_count >= min_samples).cpu().tolist()))
+    j_amb = dict(zip(need, j_band.cpu().tolist()))
+    noise = torch.zeros(len(rows), dtype=torch.bool)
+    ambiguous = band.clone()
+    for k in range(len(rows)):
+        if core[k]:
+            continue
+        js = nbrs[k].tolist()
+        noise[k] = not any(j_core[j] for j in js)
+        ambiguous[k] |= any(j_amb[j] for j in js)
+    return noise, ambiguous
+
+
+#: the four job kinds: (intelligence resource, name prefix, spec, the
+#: job's device entry as (module, attribute), the progress stage that
+#: runs it)
+JOB_KINDS = {
+    "npr": ("networkpolicyrecommendations", "pr", {"jobType": "initial"},
+            ("theia_tpu_torch.analytics.npr", "device_distinct"), "read"),
+    "fpm": ("flowpatternminings", "fpm", {"minSupport": 1048},
+            ("theia_tpu_torch.analytics.itemsets", "_counts_over"), "mine"),
+    "sad": ("spatialanomalydetections", "sad", {},
+            ("theia_tpu_torch.analytics.spatial", "dbscan_points_noise"),
+            "score"),
+    "dd": ("trafficdropdetections", "dd", {"jobType": "initial"},
+           ("theia_tpu_torch.analytics.drop_detection", "drop_scores"),
+           "score"),
+}
+JOB_TIMEOUT_S = 900.0
+#: SAD card vs CPU on the first flows by flowEndSeconds (an O(N²) CPU
+#: pass at full size takes hours); the full-size recount's sample
+SAD_PARITY_FLOWS = 16384
+SAD_SAMPLE = 256
+#: drop detection's traffic: a month of NetworkPolicy drops at 4,096
+#: endpoints, Poisson(8) drops a day, 1% of endpoint-days at 20x the
+#: rate. At most one such day per endpoint: mean ± 3·stddev_samp counts
+#: the spikes themselves, so an endpoint with three 20x days cannot
+#: flag them all (its stddev grows with them), whatever the code.
+DD_ENDPOINTS = 4096
+DD_DAYS = 30
+DD_RATE = 8.0
+DD_SPIKE_SHARE = 0.01
+DD_SPIKE_FACTOR = 20.0
+#: 2026-09-01, days since the epoch
+DD_DAY0 = 20697
+DD_RTOL = 1e-6
+#: the drop pass's kinds of CUDA events that are not kernels
+COPY_EVENTS = ("Memcpy", "Memset")
+
+
+class StageClock:
+    """While active, notes when each job's progress enters a stage and
+    when it is done (JobProgress.stage and .done): seconds per stage,
+    by job id."""
+
+    def __enter__(self):
+        from theia_tpu_torch.runner.progress import JobProgress
+        self._orig = (JobProgress.stage, JobProgress.done)
+        marks = self.marks = {}
+        stage, done = self._orig
+
+        def timed_stage(prog, name):
+            marks.setdefault(prog.job_id, []).append(
+                (name, time.perf_counter()))
+            return stage(prog, name)
+
+        def timed_done(prog):
+            marks.setdefault(prog.job_id, []).append(
+                ("", time.perf_counter()))
+            return done(prog)
+
+        JobProgress.stage, JobProgress.done = timed_stage, timed_done
+        return self
+
+    def __exit__(self, *exc):
+        from theia_tpu_torch.runner.progress import JobProgress
+        JobProgress.stage, JobProgress.done = self._orig
+        return False
+
+    def seconds(self, job_id: str) -> dict:
+        marks = self.marks.get(job_id, [])
+        return {name: t1 - t0 for (name, t0), (_, t1)
+                in zip(marks, marks[1:])}
+
+
+class DeviceCall:
+    """While active, wraps `module.attr`, a job's device entry: each
+    call runs between two CUDA events (the device span, synchronised
+    after the call) and, with `profile`, under torch.profiler (the
+    card's kernels and copies; reading the profile back takes seconds
+    at tens of thousands of kernels, inside the job's time). With
+    `keep`, each call's first argument and result stay for the
+    caller."""
+
+    def __init__(self, module: str, attr: str, profile: bool,
+                 keep: bool = False):
+        import importlib
+        self.module = importlib.import_module(module)
+        self.attr, self.profile, self.keep = attr, profile, keep
+        self.calls: list = []
+        self.kept: list = []
+
+    def __enter__(self):
+        import torch
+        orig = self._orig = getattr(self.module, self.attr)
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+
+        def wrapped(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            with (torch.profiler.profile(activities=acts) if self.profile
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                a.record()
+                out = orig(*args, **kw)
+                b.record()
+                b.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+            call = {"host_s": window_us / 1e6,
+                    "span_ms": a.elapsed_time(b)}
+            if self.profile:
+                busy, by_name = device_activity(prof, window_us)
+                kernels = {k: v for k, v in by_name.items()
+                           if not k.startswith(COPY_EVENTS)}
+                call.update(
+                    kernels=sum(v["count"] for v in kernels.values()),
+                    kernel_ms=sum(v["ms"] for v in kernels.values()),
+                    copies=sum(v["count"] for k, v in by_name.items()
+                               if k.startswith(COPY_EVENTS)),
+                    busy_share=busy,
+                    top_kernels={k[:80]: v for k, v in
+                                 list(kernels.items())[:6]})
+            self.calls.append(call)
+            if self.keep:
+                self.kept.append((args[0], out))
+            return out
+
+        setattr(self.module, self.attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self._orig)
+        return False
+
+    def summary(self) -> dict:
+        out = {"calls": len(self.calls)}
+        for key in ("host_s", "span_ms", "kernels", "kernel_ms", "copies"):
+            if self.calls and key in self.calls[0]:
+                out[key] = sum(c[key] for c in self.calls)
+        if self.profile:
+            out["per_call"] = self.calls
+        return out
+
+
+def run_api_job(port: int, resource: str, body: dict) -> dict:
+    """Create a job through the intelligence API, poll it, retrieve
+    it with its results."""
+    path = f"{GROUP}/{resource}"
+    name = body["metadata"]["name"]
+    http_json(port, path, "POST", body)
+    deadline = time.monotonic() + JOB_TIMEOUT_S
+    while time.monotonic() < deadline:
+        doc = http_json(port, f"{path}/{name}")
+        state = doc["status"]["state"]
+        if state == "FAILED":
+            raise AssertionError(f"job {name} failed: "
+                                 f"{doc['status']['errorMsg']}")
+        if state == "COMPLETED":
+            return doc
+        time.sleep(0.2)
+    raise TimeoutError(f"job {name} did not finish in {JOB_TIMEOUT_S:.0f}s")
+
+
+def live_controller():
+    """The job controller of the manager that run_manager serves in
+    this process: the one JobController still running."""
+    import gc
+    from theia_tpu_torch.manager.jobs import JobController
+    ctls = [o for o in gc.get_objects()
+            if type(o) is JobController and not o._stop.is_set()]
+    if len(ctls) != 1:
+        raise AssertionError(f"{len(ctls)} running job controllers, want "
+                             "the manager's one")
+    return ctls[0]
+
+
+def table_rows(db, table: str, job_id: str) -> list:
+    data = db.result_tables[table].scan()
+    if not len(data):
+        return []
+    return data.filter(data.strings("id") == job_id).to_rows()
+
+
+def drop_flows(seed: int):
+    """The drop-detection traffic as one flow batch with every schema
+    column, and the injected (endpoint, direction, day) spikes. Even
+    endpoints are dropped on ingress (action 2, Drop: the victim is the
+    destination), odd ones on egress (action 3, Reject: the victim is
+    the source), each by a NetworkPolicy of its namespace."""
+    import numpy as np
+    from theia_tpu_torch.schema import FLOW_SCHEMA, ColumnarBatch
+    rng = np.random.default_rng(seed)
+    n_e, n_d = DD_ENDPOINTS, DD_DAYS
+    rate = np.full((n_e, n_d), DD_RATE)
+    spiked = rng.choice(n_e, size=round(DD_SPIKE_SHARE * n_e * n_d),
+                        replace=False)
+    spike_day = rng.integers(0, n_d, size=len(spiked))
+    rate[spiked, spike_day] *= DD_SPIKE_FACTOR
+    counts = rng.poisson(rate)
+    cell = np.repeat(np.arange(n_e * n_d), counts.ravel())
+    e, d = cell // n_d, cell % n_d
+    n = len(cell)
+    ingress = e % 2 == 0
+    ep = np.arange(n_e)
+    victim = {"PodName": [f"api-{i}" for i in ep],
+              "PodNamespace": [f"team-{i % 64}" for i in ep],
+              "IP": [f"10.{128 + i // 256}.{i % 256}.7" for i in ep]}
+    peer = {"PodName": [f"client-{i}" for i in ep],
+            "PodNamespace": ["clients"] * n_e,
+            "IP": [f"10.{160 + i // 256}.{i % 256}.9" for i in ep]}
+    batch = ColumnarBatch.from_rows([], FLOW_SCHEMA)
+    cols = {c.name: (np.zeros(n, np.int32) if c.is_string
+                     else np.zeros(n, c.host_dtype)) for c in FLOW_SCHEMA}
+
+    def put(col, per_endpoint, where):
+        codes = batch.dicts[col].encode(per_endpoint)
+        cols[col] = np.where(where, codes[e], cols[col]).astype(np.int32)
+
+    for side, dst_side in (("source", False), ("destination", True)):
+        for field in ("PodName", "PodNamespace", "IP"):
+            v = victim[field] if dst_side else peer[field]
+            p = peer[field] if dst_side else victim[field]
+            put(side + field, v, ingress)
+            put(side + field, p, ~ingress)
+    put("ingressNetworkPolicyName", [f"deny-{i % 64}" for i in ep], ingress)
+    put("egressNetworkPolicyName", [f"deny-{i % 64}" for i in ep], ~ingress)
+    cols["ingressNetworkPolicyRuleAction"][:] = np.where(ingress, 2, 0)
+    cols["egressNetworkPolicyRuleAction"][:] = np.where(ingress, 0, 3)
+    start = (DD_DAY0 + d) * 86400 + rng.integers(0, 86000, n)
+    cols["flowStartSeconds"][:] = start
+    cols["flowEndSeconds"][:] = start + 10
+    cols["timeInserted"][:] = start + 15
+    cols["protocolIdentifier"][:] = 6
+    cols["destinationTransportPort"][:] = 8443
+    cols["packetDeltaCount"][:] = 3
+    cols["octetDeltaCount"][:] = 180
+    injected = {(f"team-{i % 64}/api-{i}", "ingress" if i % 2 == 0
+                 else "egress", (DD_DAY0 + int(day)) * 86400)
+                for i, day in zip(spiked, spike_day)}
+    return ColumnarBatch(cols, batch.dicts), injected
+
+
+def policy_kinds(rows) -> dict:
+    out: dict = {}
+    for r in rows:
+        out[r["kind"]] = out.get(r["kind"], 0) + 1
+    return out
+
+
+def drive_jobs(port: int, device) -> tuple:
+    """The jobs slice through the API of the manager on `port`, over
+    the flows it holds: NPR, FPM and SAD, then a month of dropped flows
+    through POST /ingest and a DD job. After each job, its card vs CPU
+    parity on the store as the job found it (the manager's own
+    database, so the same dictionary codes: NPR's distinct order and
+    SAD's hashed axes read them). Returns (the manager_jobs phase, the
+    jobs_parity phase)."""
+    import uuid
+    import torch
+    db = live_controller().db
+    out: dict = {"store_rows": total_rows(port)}
+    parity: dict = {}
+    with StageClock() as clock:
+        for kind in ("npr", "fpm", "sad", "dd"):
+            resource, prefix, spec, (mod, attr), stage = JOB_KINDS[kind]
+            if kind == "dd":
+                t0 = time.perf_counter()
+                drops, injected = drop_flows(seed=31)
+                blocks = encode_blocks(drops)
+                built_s = time.perf_counter() - t0
+                sent = send_blocks(port, blocks, PRODUCERS, "drops")
+                out["drop_traffic"] = {
+                    "rows": len(drops), "built_s": built_s,
+                    "ingest_s": sent["seconds"], "acked": sent["rows"],
+                    "endpoints": DD_ENDPOINTS, "days": DD_DAYS,
+                    "injected": len(injected)}
+            # once timed (CUDA events around the device entry), once
+            # profiled (its kernels), each a job of its own
+            runs = {}
+            for mode in ("timed", "profiled"):
+                name = f"{prefix}-{uuid.uuid4()}"
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with DeviceCall(mod, attr, profile=mode == "profiled",
+                                keep=mode == "timed") as call:
+                    doc = run_api_job(port, resource,
+                                      {"metadata": {"name": name}, **spec})
+                st = doc["status"]
+                runs[mode] = (name, doc, call, {
+                    "job_s": st["endTime"] - st["startTime"],
+                    "create_to_rows_s": time.perf_counter() - t0,
+                    "stages_s": clock.seconds(st["sparkApplication"]),
+                    "device": call.summary(),
+                    "max_memory_allocated":
+                        torch.cuda.max_memory_allocated(),
+                    "job_id": st["sparkApplication"]})
+            name, doc, call, job = runs["timed"]
+            prof = runs["profiled"][3]
+            job.update(name=name, device_stage=stage, profiled={
+                k: prof[k] for k in ("job_s", "stages_s", "device")})
+            # the profiled run's kernel time over the timed run's job
+            dev = prof["device"]
+            job["device_idle_share_of_job"] = \
+                1.0 - dev["kernel_ms"] / 1e3 / job["job_s"]
+            if dev["kernels"] < 1:
+                raise AssertionError(f"the {kind} job launched no CUDA "
+                                     f"kernel in its {stage} stage")
+            if kind == "npr":
+                keys, (uniq, _) = call.kept[0]
+                rows = table_rows(db, "recommendations", job["job_id"])
+                outcome = doc["status"]["recommendationOutcome"]
+                job.update(distinct_input_rows=len(keys),
+                           distinct_rows=len(uniq), result_rows=len(rows),
+                           policies_by_kind=policy_kinds(rows),
+                           outcome_matches_table=sorted(
+                               outcome.split("---\n")) == sorted(
+                               r["policy"] for r in rows))
+                if len(keys) != len(db.flows.scan()) \
+                        or not job["outcome_matches_table"]:
+                    raise AssertionError(f"NPR through the API: {job}")
+            else:
+                job["result_rows"] = len(doc.get("stats", []))
+            if kind == "fpm":
+                by_len: dict = {}
+                for r in doc["stats"]:
+                    n_len = int(r["itemsetLength"])
+                    by_len[n_len] = by_len.get(n_len, 0) + 1
+                job.update(itemsets_by_length=by_len, f=by_len.get(1, 0),
+                           p=by_len.get(2, 0))
+            if kind == "sad":
+                alerts = http_json(port, f"/alerts?limit={RING}")["alerts"]
+                job.update(noise=job["result_rows"],
+                           score_s=job["stages_s"].get("score"),
+                           spatial_alerts=sum(
+                               a.get("kind") == "spatial_noise"
+                               and a.get("job") == name for a in alerts))
+                if not job["spatial_alerts"]:
+                    raise AssertionError("no spatial alert reached /alerts")
+            if kind == "dd":
+                found = {(r["endpoint"], r["direction"],
+                          int(r["anomalyDropDate"])) for r in doc["stats"]}
+                job.update(injected=len(injected),
+                           injected_found=len(injected & found),
+                           not_injected=len(found - injected))
+                if not injected <= found:
+                    raise AssertionError(
+                        f"DD missed {len(injected - found)} of "
+                        f"{len(injected)} injected endpoint-days")
+            out[kind] = job
+            parity[kind] = cpu_parity(
+                kind, db, job, call.kept[0] if call.kept else None, device)
+    return out, parity
+
+
+def cpu_parity(kind: str, db, job: dict, kept, device) -> dict:
+    """The port on device="cpu" over the store as the card's `kind`
+    job found it, against that job: NPR (kind, policy) pairs and FPM
+    itemsets exact; DD rows exact, mean and stddev within DD_RTOL; SAD
+    card vs CPU flags on the first SAD_PARITY_FLOWS flows by
+    flowEndSeconds, and the card job's full-size flags against an
+    exact float64 recount of a seeded sample, each outside the
+    EPS_BAND exception."""
+    import numpy as np
+    import torch
+    from theia_tpu_torch.analytics import (flow_embeddings,
+                                           run_drop_detection, run_npr,
+                                           run_pattern_mining)
+    from theia_tpu_torch.ops.dbscan import dbscan_points_noise
+    t0 = time.perf_counter()
+    cpu_id = f"cpu-{kind}"
+    if kind == "npr":
+        run_npr(db, recommendation_id=cpu_id, device="cpu")
+        got = {side: sorted((r["kind"], r["policy"]) for r in table_rows(
+            db, "recommendations", job_id))
+            for side, job_id in (("card", job["job_id"]), ("cpu", cpu_id))}
+        return {"cpu_s": time.perf_counter() - t0,
+                "policies": len(got["card"]),
+                "equal": got["card"] == got["cpu"]}
+    if kind == "fpm":
+        run_pattern_mining(db, min_support=JOB_KINDS["fpm"][2]["minSupport"],
+                           mining_id=cpu_id, device="cpu")
+        got = {side: sorted((r["items"], int(r["itemsetLength"]),
+                             int(r["support"])) for r in table_rows(
+            db, "flowpatterns", job_id))
+            for side, job_id in (("card", job["job_id"]), ("cpu", cpu_id))}
+        return {"cpu_s": time.perf_counter() - t0,
+                "itemsets": len(got["card"]),
+                "equal": got["card"] == got["cpu"]}
+    if kind == "dd":
+        run_drop_detection(db, detection_id=cpu_id, device="cpu")
+        key = ("endpoint", "direction", "anomalyDropDate",
+               "anomalyDropNumber")
+        got = {side: sorted((tuple(r[k] for k in key), r["avgDrop"],
+                             r["stdevDrop"]) for r in table_rows(
+            db, "dropdetection", job_id))
+            for side, job_id in (("card", job["job_id"]), ("cpu", cpu_id))}
+        card, cpu = got["card"], got["cpu"]
+        n_equal = len(card) == len(cpu)
+        out = {"cpu_s": time.perf_counter() - t0, "rows": len(card),
+               "flags_equal": n_equal and all(
+                   a[0] == b[0] for a, b in zip(card, cpu))}
+        for i, col in ((1, "mean_max_rel"), (2, "std_max_rel")):
+            out[col] = max_rel([a[i] for a in card],
+                               [b[i] for b in cpu]) if n_equal else None
+        return out
+
+    # SAD, card vs CPU, on the first flows by flowEndSeconds
+    flows = db.flows.scan()
+    order = np.argsort(flows["flowEndSeconds"], kind="stable")
+    emb = torch.from_numpy(flow_embeddings(
+        flows.take(order[:SAD_PARITY_FLOWS])))
+    valid = torch.ones(len(emb), dtype=torch.bool)
+    t0 = time.perf_counter()
+    on_card = dbscan_points_noise(emb.to(device), valid.to(device),
+                                  eps=1.0).cpu()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = dbscan_points_noise(emb, valid, eps=1.0)
+    cpu_s = time.perf_counter() - t0
+    exact, amb = points_recount(emb.to(device),
+                                torch.arange(len(emb)), 1.0, 4)
+    differ = (on_card != on_cpu) | (on_card != exact)
+    out = {"subset": {
+        "flows": len(emb), "card_s": card_s, "cpu_s": cpu_s,
+        "noise_card": int(on_card.sum()), "noise_cpu": int(on_cpu.sum()),
+        "noise_exact": int(exact.sum()), "ambiguous": int(amb.sum()),
+        "ambiguous_points": amb.nonzero()[:, 0].tolist()[:20],
+        "differ": int(differ.sum()),
+        "differ_outside_band": int((differ & ~amb).sum())}}
+
+    # SAD at full size: the API job's own points and flags, recounted
+    points, noise = kept
+    noise = noise.cpu()
+    gen = torch.Generator().manual_seed(41)
+    flagged = noise.nonzero()[:, 0]
+    clear = (~noise).nonzero()[:, 0]
+    pick = torch.cat([
+        flagged[torch.randperm(len(flagged), generator=gen)[:SAD_SAMPLE]],
+        clear[torch.randperm(len(clear), generator=gen)[:SAD_SAMPLE]]])
+    t0 = time.perf_counter()
+    exact, amb = points_recount(points, pick.to(points.device), 1.0, 4)
+    bad = (exact != noise[pick]) & ~amb
+    out["full"] = {
+        "flows": len(noise), "noise": int(noise.sum()),
+        "sampled_flagged": int(noise[pick].sum()),
+        "sampled_clear": int((~noise[pick]).sum()),
+        "recount_s": time.perf_counter() - t0,
+        "ambiguous": int(amb.sum()), "disagree": int(bad.sum()),
+        "disagree_points": pick[bad].tolist()[:20]}
+    return out
+
+
+def check_jobs_parity(got: dict) -> None:
+    if not (got["npr"]["equal"] and got["npr"]["policies"]):
+        raise AssertionError(f"NPR card vs CPU: {got['npr']}")
+    if not (got["fpm"]["equal"] and got["fpm"]["itemsets"]):
+        raise AssertionError(f"FPM card vs CPU: {got['fpm']}")
+    dd = got["dd"]
+    if not (dd["flags_equal"] and dd["rows"]) \
+            or dd["mean_max_rel"] > DD_RTOL or dd["std_max_rel"] > DD_RTOL:
+        raise AssertionError(f"DD card vs CPU: {dd}")
+    if got["sad"]["subset"]["differ_outside_band"]:
+        raise AssertionError(f"SAD card vs CPU: {got['sad']['subset']}")
+    if got["sad"]["full"]["disagree"] or not got["sad"]["full"]["noise"]:
+        raise AssertionError(f"SAD recount: {got['sad']['full']}")
+
+
 # -- main ---------------------------------------------------------------
 
 def main() -> int:
@@ -1859,7 +2405,12 @@ def main() -> int:
     emit("manager_tad_traffic", seconds=time.perf_counter() - t0,
          blocks=len(tad_blocks))
     manager_tad = phase_manager_tad(tad_blocks, flows, device)
+    jobs = manager_tad.pop("manager_jobs")
+    jobs_parity = manager_tad.pop("jobs_parity")
     emit("manager_tad", **manager_tad)
+    emit("manager_jobs", **jobs)
+    emit("jobs_parity", dd_rtol=DD_RTOL, eps_band=EPS_BAND, **jobs_parity)
+    check_jobs_parity(jobs_parity)
     del flows, tad_blocks
     emit("manager_restart",
          **phase_manager_restart(main_blocks[:RESTART_BLOCKS], device))

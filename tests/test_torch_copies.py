@@ -32,6 +32,7 @@ COPIES = (
     "store/views.py",
     "ingest/native.py",
     "analytics/series.py",
+    "analytics/policy_gen.py",
     "utils/atomic.py",
     "utils/backoff.py",
     "utils/pool.py",
@@ -111,19 +112,13 @@ DERIVED = {
         "IngestManager.__init__": "takes device= for the detectors",
     },
     "manager/jobs.py": {
-        "NOT_PORTED": "the job kinds whose analytics are not ported, "
-                      "with their ROADMAP items",
         "JobController.__init__": "takes device=; refuses subprocess "
                                   "dispatch (ROADMAP A17)",
-        "JobController._run_inprocess": "TAD on the controller's "
-                                        "device; other kinds raise",
-        # unreachable once subprocess dispatch is refused and only TAD
-        # runs: _run keeps its calls to the two methods, never taken
+        "JobController._run_inprocess": "every job kind on the "
+                                        "controller's device",
+        # unreachable once subprocess dispatch is refused: _run keeps
+        # its call to _run_subprocess, never taken
         "_STAGES": "left out: subprocess dispatch only (ROADMAP A17)",
-        "POLICY_TYPE_OPTION": "left out: NPR only (ROADMAP A13)",
-        "_validate_max_len": "left out: pattern mining only (A14)",
-        "JobController._push_spatial_alerts":
-            "left out: spatial jobs only (ROADMAP A14)",
         "JobController._fmt_time": "left out: subprocess dispatch only "
                                    "(ROADMAP A17)",
         "JobController._runner_args": "left out: subprocess dispatch "
@@ -134,6 +129,23 @@ DERIVED = {
                                          "only (ROADMAP A17)",
         "JobController._merge_results": "left out: subprocess dispatch "
                                         "only (ROADMAP A17)",
+    },
+    "analytics/npr.py": {
+        "read_distinct_flows": "takes device= for the port's "
+                               "device_distinct",
+        "run_npr": "takes device=; mesh 'auto' or None, one device "
+                   "(the sharded DISTINCT is ROADMAP A16)",
+    },
+    "analytics/spatial.py": {
+        "spatial_outliers": "the port's dbscan_points_noise on "
+                            "device=; the mesh branch left out "
+                            "(ROADMAP A16)",
+        "run_spatial": "takes device=; mesh 'auto' or None, one device "
+                       "(ROADMAP A16)",
+    },
+    "analytics/drop_detection.py": {
+        "run_drop_detection": "takes device=: the count matrix to the "
+                              "device, the scores back with .cpu()",
     },
     "cluster/__init__.py": {
         "__all__": "only the error types the request handlers map to "

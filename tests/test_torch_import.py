@@ -18,10 +18,18 @@ PORT_FILES = sorted((REPO / "theia_tpu_torch").rglob("*.py")) + [
 
 #: modules the fresh-process probe must find and import: the scoring
 #: path and, from the manager slice on, the request half, the store,
-#: the query layer and the control plane
+#: the query layer and the control plane; from the jobs slice on, the
+#: NPR, pattern-mining, spatial and drop-detection jobs
 SLICE_MODULES = (
     "theia_tpu_torch.ops.fused_detector",
     "theia_tpu_torch.ops.dbscan",
+    "theia_tpu_torch.ops.drops",
+    "theia_tpu_torch.analytics.npr",
+    "theia_tpu_torch.analytics.npr_device",
+    "theia_tpu_torch.analytics.policy_gen",
+    "theia_tpu_torch.analytics.itemsets",
+    "theia_tpu_torch.analytics.spatial",
+    "theia_tpu_torch.analytics.drop_detection",
     "theia_tpu_torch.manager.ingest",
     "theia_tpu_torch.manager.api",
     "theia_tpu_torch.manager.jobs",

@@ -13,6 +13,10 @@ requests.
   result rows are equal apart from the job id, with
   throughputStandardDeviation within rtol 2e-15 (a float64 sum over T
   in another order, tests/test_torch_tad.py).
+- NPR, pattern-mining, spatial and drop-detection jobs created with
+  one name on both servers through the intelligence API, over the same
+  posted flows (and a block of dropped flows): the rows retrieved are
+  equal, and a spatial job's noise alerts reach `/alerts` on both.
 - Restart from the WAL with no snapshot, and restarts across the two
   packages on one WAL directory: totalRows and the flows scan match,
   and a re-sent seq answers `duplicate: true`.
@@ -25,7 +29,9 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import urllib.request
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +39,8 @@ import pytest
 
 from theia_tpu.data.synth import SynthConfig, generate_flows
 from theia_tpu.manager import TheiaManagerServer as RefServer
+from theia_tpu.schema import FLOW_SCHEMA as REF_SCHEMA
+from theia_tpu.schema import ColumnarBatch as RefBatch
 from theia_tpu.store import FlowDatabase as RefDatabase
 from theia_tpu.store import wire as ref_wire
 from theia_tpu_torch.manager import TheiaManagerServer
@@ -226,16 +234,101 @@ def test_http_surface_and_tad_jobs_match_reference(pair, tmp_path):
                                    [w[1] for w in want], rtol=STD_RTOL)
 
 
-def test_unported_job_kinds_fail_naming_the_roadmap_item(pair):
-    _, port = pair
-    ctl = port.controller
-    rec = ctl.create("npr", {})
-    ctl.wait_all(timeout=30)
-    assert rec.state == "FAILED"
-    assert "ROADMAP A13" in rec.error_msg
-    rec = ctl.create("dd", {})
-    ctl.wait_all(timeout=30)
-    assert rec.state == "FAILED" and "ROADMAP A14" in rec.error_msg
+def _drop_block(seed=9, endpoints=12, days=16):
+    """Dropped flows (Drop on ingress for even endpoints, Reject on
+    egress for odd), Poisson(3) a day with one x20 endpoint-day each,
+    as one TBLK block: drop detection's input."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for e in range(endpoints):
+        ingress = e % 2 == 0
+        for day in range(days):
+            n = int(rng.poisson(3.0)) * (20 if day == e % days else 1)
+            rows.extend({
+                "flowStartSeconds": day * 86400 + 30 * i,
+                "flowEndSeconds": day * 86400 + 30 * i + 5,
+                "sourcePodNamespace": "ns-c", "sourcePodName": f"c-{e}",
+                "sourceIP": f"10.3.0.{e}",
+                "destinationPodNamespace": "ns-s",
+                "destinationPodName": f"s-{e}",
+                "destinationIP": f"10.4.0.{e}",
+                "ingressNetworkPolicyRuleAction": 2 if ingress else 0,
+                "egressNetworkPolicyRuleAction": 0 if ingress else 3,
+                "timeInserted": day * 86400 + 30 * i + 9,
+            } for i in range(n))
+    return ref_wire.encode_block(
+        RefBatch.from_rows(rows, REF_SCHEMA))
+
+
+#: job kind → (intelligence resource, spec)
+JOBS = {
+    "npr": ("networkpolicyrecommendations", {"jobType": "initial"}),
+    "fpm": ("flowpatternminings", {"minSupport": 4}),
+    "sad": ("spatialanomalydetections", {}),
+    "dd": ("trafficdropdetections", {"jobType": "initial"}),
+}
+GROUP = "/apis/intelligence.theia.antrea.io/v1alpha1"
+
+
+def _post_json(srv, path, body) -> dict:
+    req = urllib.request.Request(
+        _url(srv, path), data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _job_result(srv, resource, name) -> dict:
+    """Poll the job through the API until it ends; its retrieved
+    document."""
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        doc = json.loads(_get(srv, f"{GROUP}/{resource}/{name}"))
+        if doc["status"]["state"] in ("COMPLETED", "FAILED"):
+            return doc
+        time.sleep(0.1)
+    raise TimeoutError(f"{name} did not finish")
+
+
+def _job_rows(kind, doc) -> list:
+    """The rows a user retrieves, wall-clock stamps aside: NPR's
+    policies from its outcome, the other kinds' result rows."""
+    if kind == "npr":
+        return sorted(doc["status"]["recommendationOutcome"]
+                      .split("---\n"))
+    return sorted(tuple(sorted((k, v) for k, v in r.items()
+                               if k != "timeCreated"))
+                  for r in doc["stats"])
+
+
+@pytest.mark.parametrize("kind", sorted(JOBS))
+def test_job_kinds_through_the_api_match_reference(pair, kind):
+    """The same flows posted to both managers, then the same job (one
+    name) created on each through the intelligence API: both reach
+    COMPLETED and the rows retrieved are equal; a spatial job pushes
+    the same noise alerts to /alerts on both."""
+    ref, port = pair
+    for seq, blk in enumerate(_blocks() + [_drop_block()]):
+        assert _post_ingest(port, blk, "p", seq) == \
+            _post_ingest(ref, blk, "p", seq)
+    resource, spec = JOBS[kind]
+    name = f"{kind if kind != 'npr' else 'pr'}-{uuid.uuid4()}"
+    docs = {}
+    for label, srv in (("ref", ref), ("port", port)):
+        _post_json(srv, f"{GROUP}/{resource}",
+                   {"metadata": {"name": name}, **spec})
+        docs[label] = _job_result(srv, resource, name)
+    for doc in docs.values():
+        assert doc["status"]["state"] == "COMPLETED", doc["status"]
+    want = _job_rows(kind, docs["ref"])
+    assert want and _job_rows(kind, docs["port"]) == want
+    if kind == "sad":
+        rings = [[{k: v for k, v in a.items() if k not in CLOCK_KEYS}
+                  for a in json.loads(_get(srv, "/alerts?limit=10000"))
+                  ["alerts"] if a["kind"] == "spatial_noise"]
+                 for srv in (ref, port)]
+        assert rings[0] and rings[1] == rings[0]
+        assert all(a["job"] == name for a in rings[1])
 
 
 def test_restart_from_wal_without_snapshot(tmp_path):

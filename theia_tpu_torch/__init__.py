@@ -11,11 +11,13 @@ tests/test_torch_copies.py.
 Ported so far: the live ingest-and-score path (TBLK decode →
 ingest-global key remap → per-shard detectors: EWMA/Welford
 per-connection scan, Count-Min-Sketch heavy hitters, online k-means →
-the alert ring), the TAD batch job, and the manager that serves both
-(`python -m theia_tpu_torch.manager`: POST /ingest through admission,
-dedup, the WAL and the parts store; TAD jobs through the API). Every
-TPU kernel on those paths is a CUDA C++ kernel under `csrc/`, built
-with nvcc at first use (`ops/_build.py`).
+the alert ring), the batch jobs (TAD, NPR, pattern mining, spatial
+and drop detection), and the manager that serves them (`python -m
+theia_tpu_torch.manager`: POST /ingest through admission, dedup, the
+WAL and the parts store; every job kind through the API). Every TPU
+kernel on those paths is a CUDA C++ kernel under `csrc/`, built with
+nvcc at first use (`ops/_build.py`); the rest of their device work is
+torch ops.
 
 Device rule: entry points take `device=` (default "cuda") and raise
 when CUDA is unavailable unless the caller passed device="cpu"; on a

@@ -1,15 +1,24 @@
-"""Analytics jobs: throughput anomaly detection (TAD) and the
-streaming detectors (per-connection EWMA/Welford, heavy-hitter CMS +
-k-means)."""
+"""Analytics jobs: throughput anomaly detection (TAD), policy
+recommendation (NPR), abnormal traffic-drop detection, frequent
+flow-pattern mining, spatial anomaly detection, and the streaming
+detectors (per-connection EWMA/Welford, heavy-hitter CMS + k-means)."""
 
+from .drop_detection import run_drop_detection
 from .heavy_hitters import HeavyHitterAlert, HeavyHitterDetector
+from .itemsets import mine_frequent_patterns, run_pattern_mining
+from .npr import (NAMESPACE_ALLOW_LIST, read_distinct_flows, run_npr)
 from .series import SeriesBatch, TadQuerySpec, build_series
+from .spatial import flow_embeddings, run_spatial, spatial_outliers
 from .streaming import StreamingDetector, stream_update
 from .tad import ALGORITHMS, detect_anomalies, run_tad, score_series
 
 __all__ = [
     "SeriesBatch", "TadQuerySpec", "build_series",
     "ALGORITHMS", "detect_anomalies", "run_tad", "score_series",
+    "NAMESPACE_ALLOW_LIST", "read_distinct_flows", "run_npr",
     "StreamingDetector", "stream_update",
+    "run_drop_detection",
     "HeavyHitterAlert", "HeavyHitterDetector",
+    "mine_frequent_patterns", "run_pattern_mining",
+    "flow_embeddings", "run_spatial", "spatial_outliers",
 ]

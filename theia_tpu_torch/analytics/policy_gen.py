@@ -1,0 +1,285 @@
+"""NetworkPolicy YAML generation for the recommendation job.
+
+Builds the same policy documents the reference emits via kubernetes-client
+/ antrea_crd dataclasses + camelCase conversion (reference:
+plugins/policy-recommendation/policy_recommendation_job.py:188-618 and
+policy_recommendation_utils.py camel_dict/dict_to_yaml). Here the dicts
+are written in camelCase directly — no dataclass detour — and dumped with
+pyyaml. Policy kinds match the reference's result-table values
+(antrea_crd.py:789-793: anp/knp/acnp/acg).
+
+Name suffixes: the reference appends 5 random lowercase/digit chars
+(generate_policy_name :244-250); we derive a deterministic 5-char hash of
+the policy's identity instead, so runs are reproducible and golden tests
+don't need to stub the RNG.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import ipaddress
+import json
+from typing import Dict, List, Optional
+
+import yaml
+
+ROW_DELIMITER = "#"
+PEER_DELIMITER = "|"
+DEFAULT_POLICY_PRIORITY = 5
+
+KIND_ANP = "anp"
+KIND_KNP = "knp"
+KIND_ACNP = "acnp"
+KIND_ACG = "acg"
+
+
+def policy_name(info: str, identity: str) -> str:
+    suffix = hashlib.sha1(identity.encode()).hexdigest()[:5]
+    return f"{info}-{suffix}"
+
+
+def _cidr(ip: str) -> str:
+    version = ipaddress.ip_address(ip).version
+    return f"{ip}/32" if version == 4 else f"{ip}/128"
+
+
+def dump_yaml(doc: Dict) -> str:
+    return yaml.dump(doc)
+
+
+# -- K8s NetworkPolicy (option 3; reference generate_k8s_np :253-296) ----
+
+def k8s_egress_rule(egress: str) -> Dict:
+    parts = egress.split(ROW_DELIMITER)
+    if len(parts) == 4:
+        ns, labels, port, protocol = parts
+        peer = {"namespaceSelector": {"matchLabels": {"name": ns}},
+                "podSelector": {"matchLabels": json.loads(labels)}}
+    elif len(parts) == 3:
+        ip, port, protocol = parts
+        peer = {"ipBlock": {"cidr": _cidr(ip)}}
+    else:
+        raise ValueError(f"egress tuple {egress!r} has wrong format")
+    return {"to": [peer],
+            "ports": [{"port": int(port), "protocol": protocol}]}
+
+
+def k8s_ingress_rule(ingress: str) -> Dict:
+    parts = ingress.split(ROW_DELIMITER)
+    if len(parts) != 4:
+        raise ValueError(f"ingress tuple {ingress!r} has wrong format")
+    ns, labels, port, protocol = parts
+    peer = {"namespaceSelector": {"matchLabels": {"name": ns}},
+            "podSelector": {"matchLabels": json.loads(labels)}}
+    return {"from": [peer],
+            "ports": [{"port": int(port), "protocol": protocol}]}
+
+
+def generate_k8s_np(applied_to: str, ingresses: List[str],
+                    egresses: List[str]) -> Optional[str]:
+    ns, labels = applied_to.split(ROW_DELIMITER)
+    egress_rules = [k8s_egress_rule(e) for e in sorted(set(egresses))
+                    if ROW_DELIMITER in e]
+    ingress_rules = [k8s_ingress_rule(i) for i in sorted(set(ingresses))
+                     if ROW_DELIMITER in i]
+    if not egress_rules and not ingress_rules:
+        return None
+    policy_types = ([] + (["Egress"] if egress_rules else [])
+                    + (["Ingress"] if ingress_rules else []))
+    doc = {
+        "apiVersion": "networking.k8s.io/v1",
+        "kind": "NetworkPolicy",
+        "metadata": {"name": policy_name("recommend-k8s-np", applied_to),
+                     "namespace": ns},
+        "spec": {
+            "egress": egress_rules,
+            "ingress": ingress_rules,
+            "podSelector": {"matchLabels": json.loads(labels)},
+            "policyTypes": policy_types,
+        },
+    }
+    return dump_yaml(doc)
+
+
+# -- Antrea NetworkPolicy (options 1/2; reference generate_anp :391-448) -
+
+def anp_egress_rule(egress: str) -> Optional[Dict]:
+    parts = egress.split(ROW_DELIMITER)
+    if len(parts) == 4:           # pod-to-pod
+        ns, labels, port, protocol = parts
+        try:
+            labels_dict = json.loads(labels)
+        except Exception:
+            return None
+        peer = {"namespaceSelector":
+                {"matchLabels": {"kubernetes.io/metadata.name": ns}},
+                "podSelector": {"matchLabels": labels_dict}}
+        return {"action": "Allow", "to": [peer],
+                "ports": [{"protocol": protocol, "port": int(port)}]}
+    if len(parts) == 3:           # pod-to-external
+        ip, port, protocol = parts
+        return {"action": "Allow",
+                "to": [{"ipBlock": {"cidr": _cidr(ip)}}],
+                "ports": [{"protocol": protocol, "port": int(port)}]}
+    if len(parts) == 2:           # pod-to-svc (toServices)
+        svc_ns, svc_name = parts
+        return {"action": "Allow",
+                "toServices": [{"namespace": svc_ns, "name": svc_name}]}
+    raise ValueError(f"egress tuple {egress!r} has wrong format")
+
+
+def anp_ingress_rule(ingress: str) -> Optional[Dict]:
+    parts = ingress.split(ROW_DELIMITER)
+    if len(parts) != 4:
+        raise ValueError(f"ingress tuple {ingress!r} has wrong format")
+    ns, labels, port, protocol = parts
+    try:
+        labels_dict = json.loads(labels)
+    except Exception:
+        return None
+    peer = {"namespaceSelector":
+            {"matchLabels": {"kubernetes.io/metadata.name": ns}},
+            "podSelector": {"matchLabels": labels_dict}}
+    return {"action": "Allow", "from": [peer],
+            "ports": [{"protocol": protocol, "port": int(port)}]}
+
+
+def generate_anp(applied_to: str, ingresses: List[str],
+                 egresses: List[str]) -> Optional[str]:
+    ns, labels = applied_to.split(ROW_DELIMITER)
+    try:
+        labels_dict = json.loads(labels)
+    except Exception:
+        return None
+    egress_rules = [r for e in sorted(set(egresses)) if ROW_DELIMITER in e
+                    for r in [anp_egress_rule(e)] if r]
+    ingress_rules = [r for i in sorted(set(ingresses)) if ROW_DELIMITER in i
+                     for r in [anp_ingress_rule(i)] if r]
+    if not egress_rules and not ingress_rules:
+        return None
+    doc = {
+        "apiVersion": "crd.antrea.io/v1alpha1",
+        "kind": "NetworkPolicy",
+        "metadata": {"name": policy_name("recommend-allow-anp", applied_to),
+                     "namespace": ns},
+        "spec": {
+            "tier": "Application",
+            "priority": DEFAULT_POLICY_PRIORITY,
+            "appliedTo": [{"podSelector": {"matchLabels": labels_dict}}],
+            "egress": egress_rules,
+            "ingress": ingress_rules,
+        },
+    }
+    return dump_yaml(doc)
+
+
+# -- Service ClusterGroup + ACNP (reference :451-549) --------------------
+
+def svc_cg_name(namespace: str, name: str) -> str:
+    return "-".join(["cg", namespace, name])
+
+
+def generate_svc_cg(service_port_name: str) -> str:
+    namespace, name = service_port_name.partition(":")[0].split("/")
+    doc = {
+        "apiVersion": "crd.antrea.io/v1alpha2",
+        "kind": "ClusterGroup",
+        "metadata": {"name": svc_cg_name(namespace, name)},
+        "spec": {"serviceReference": {"name": name,
+                                      "namespace": namespace}},
+    }
+    return dump_yaml(doc)
+
+
+def acnp_svc_egress_rule(egress: str) -> Dict:
+    svc_port_name, port, protocol = egress.split(ROW_DELIMITER)
+    ns, svc = svc_port_name.partition(":")[0].split("/")
+    return {"action": "Allow",
+            "to": [{"group": svc_cg_name(ns, svc)}],
+            "ports": [{"protocol": protocol, "port": int(port)}]}
+
+
+def generate_svc_acnp(applied_to: str,
+                      egresses: List[str]) -> Optional[str]:
+    ns, labels = applied_to.split(ROW_DELIMITER)
+    try:
+        labels_dict = json.loads(labels)
+    except Exception:
+        return None
+    egress_rules = [acnp_svc_egress_rule(e) for e in sorted(set(egresses))]
+    if not egress_rules:
+        return None
+    doc = {
+        "apiVersion": "crd.antrea.io/v1alpha1",
+        "kind": "ClusterNetworkPolicy",
+        "metadata": {
+            "name": policy_name("recommend-svc-allow-acnp", applied_to)},
+        "spec": {
+            "tier": "Application",
+            "priority": DEFAULT_POLICY_PRIORITY,
+            "appliedTo": [{
+                "podSelector": {"matchLabels": labels_dict},
+                "namespaceSelector":
+                    {"matchLabels": {"kubernetes.io/metadata.name": ns}},
+            }],
+            "egress": egress_rules,
+        },
+    }
+    return dump_yaml(doc)
+
+
+# -- Baseline reject ACNPs (reference generate_reject_acnp :552-618) -----
+
+def generate_reject_acnp(applied_to: str = "") -> Optional[str]:
+    if not applied_to:
+        name = "recommend-reject-all-acnp"
+        applied = {"podSelector": {}, "namespaceSelector": {}}
+    else:
+        name = policy_name("recommend-reject-acnp", applied_to)
+        ns, labels = applied_to.split(ROW_DELIMITER)
+        try:
+            labels_dict = json.loads(labels)
+        except Exception:
+            return None
+        applied = {
+            "podSelector": {"matchLabels": labels_dict},
+            "namespaceSelector":
+                {"matchLabels": {"kubernetes.io/metadata.name": ns}},
+        }
+    doc = {
+        "apiVersion": "crd.antrea.io/v1alpha1",
+        "kind": "ClusterNetworkPolicy",
+        "metadata": {"name": name},
+        "spec": {
+            "tier": "Baseline",
+            "priority": DEFAULT_POLICY_PRIORITY,
+            "appliedTo": [applied],
+            "egress": [{"action": "Reject",
+                        "to": [{"podSelector": {}}]}],
+            "ingress": [{"action": "Reject",
+                         "from": [{"podSelector": {}}]}],
+        },
+    }
+    return dump_yaml(doc)
+
+
+# -- Namespace allow-list ACNPs (reference :737-782) ---------------------
+
+def generate_ns_allow_acnp(ns: str) -> str:
+    doc = {
+        "apiVersion": "crd.antrea.io/v1alpha1",
+        "kind": "ClusterNetworkPolicy",
+        "metadata": {"name": policy_name(
+            f"recommend-allow-acnp-{ns}", ns)},
+        "spec": {
+            "tier": "Platform",
+            "priority": DEFAULT_POLICY_PRIORITY,
+            "appliedTo": [{"namespaceSelector":
+                           {"matchLabels":
+                            {"kubernetes.io/metadata.name": ns}}}],
+            "egress": [{"action": "Allow", "to": [{"podSelector": {}}]}],
+            "ingress": [{"action": "Allow",
+                         "from": [{"podSelector": {}}]}],
+        },
+    }
+    return dump_yaml(doc)

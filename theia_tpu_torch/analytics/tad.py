@@ -27,7 +27,7 @@ import torch
 from ..ops.arima import arima_scores
 from ..ops.dbscan import dbscan_scores
 from ..ops.ewma import ewma_scores
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, single_device
 from ..utils.logging import get_logger
 from .series import SeriesBatch, TadQuerySpec, build_series
 
@@ -50,16 +50,6 @@ def effective_refit(algo: str, refit_every: int, n_steps: int) -> int:
     return refit_every if refit_every else max(1, n_steps // 2048)
 
 
-def _single_device(mesh) -> None:
-    """Only one device is ported: "auto" and None both mean it; any
-    other mesh raises rather than being ignored."""
-    if mesh is None or (isinstance(mesh, str) and mesh == "auto"):
-        return
-    raise NotImplementedError(
-        f"mesh {mesh!r}: scoring over several devices is not ported; "
-        "pass mesh='auto' or None for one device")
-
-
 def score_series(values: np.ndarray, mask: np.ndarray, algo: str,
                  refit_every: int = 1, mesh=None, device="cuda"):
     """Run one algorithm over a padded [S, T] batch on `device`.
@@ -70,7 +60,7 @@ def score_series(values: np.ndarray, mask: np.ndarray, algo: str,
     if algo not in ALGORITHMS:
         raise ValueError(
             f"algo must be one of {ALGORITHMS}, got {algo!r}")
-    _single_device(mesh)
+    single_device(mesh)
     dev = resolve_device(device)
     x = torch.from_numpy(np.ascontiguousarray(values)).to(dev)
     m = torch.from_numpy(np.ascontiguousarray(mask, dtype=bool)).to(dev)
@@ -106,7 +96,7 @@ def run_tad(db, algo: str, spec: TadQuerySpec,
     """
     if algo not in ALGORITHMS:
         raise ValueError(f"algo must be one of {ALGORITHMS}, got {algo!r}")
-    _single_device(mesh)
+    single_device(mesh)
     tad_id = tad_id or str(uuid.uuid4())
 
     if progress:

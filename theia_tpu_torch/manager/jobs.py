@@ -2,11 +2,10 @@
 
 Ports theia_tpu/manager/jobs.py. In the port, jobs run on in-process
 worker threads on the controller's device (`device=`, default "cuda"):
-TAD runs through analytics/tad.py, where DBSCAN reaches the B2 kernel
-on the card. The job kinds whose analytics are not ported yet (NPR:
-ROADMAP A13; pattern mining, spatial and drop detection: A14) fail
-with an error naming that item, and `dispatch="subprocess"` (the job
-runner, A17) is refused at construction.
+every job kind the reference serves in process — TAD (whose DBSCAN
+reaches the B2 kernel on the card), NPR, pattern mining, spatial and
+drop detection — runs its device work there. `dispatch="subprocess"`
+(the job runner, ROADMAP A17) is refused at construction.
 
 Re-provides the reference's CRD controllers
 (pkg/controller/networkpolicyrecommendation/controller.go and
@@ -35,12 +34,16 @@ import uuid
 import zlib
 from typing import Dict, List, Optional
 
-from ..analytics import TadQuerySpec, run_tad
+import numpy as np
+
+from ..analytics import (TadQuerySpec, run_drop_detection, run_npr,
+                         run_pattern_mining, run_spatial, run_tad)
 from ..obs import metrics as _obs_metrics
 from ..obs import trace as _obs_trace
-from ..runner.progress import TAD_STAGES, JobProgress
+from ..runner.progress import (DD_STAGES, FPM_STAGES, NPR_STAGES,
+                               SPATIAL_STAGES, TAD_STAGES, JobProgress)
 from ..store import FlowDatabase
-from ..utils import get_logger, parse_job_name
+from ..utils import get_logger, parse_job_name, validate_policy_type
 from ..utils.backoff import capped_backoff
 from ..utils.device import resolve_device
 from ..utils.env import env_float, env_int
@@ -86,18 +89,11 @@ _RESULT_TABLE = {KIND_NPR: "recommendations", KIND_TAD: "tadetector",
                  KIND_DD: "dropdetection", KIND_FPM: "flowpatterns",
                  KIND_SPATIAL: "spatialnoise"}
 
-#: job kind → why it cannot run in the port yet (the ROADMAP item that
-#: ports its analytics)
-NOT_PORTED = {
-    KIND_NPR: "NPR jobs are not ported to theia_tpu_torch yet "
-              "(ROADMAP A13)",
-    KIND_FPM: "pattern-mining jobs are not ported to theia_tpu_torch "
-              "yet (ROADMAP A14)",
-    KIND_SPATIAL: "spatial jobs are not ported to theia_tpu_torch yet "
-                  "(ROADMAP A14)",
-    KIND_DD: "drop-detection jobs are not ported to theia_tpu_torch "
-             "yet (ROADMAP A14)",
-}
+#: policy mode → job --option (reference recommend_policies_for_
+#: unprotected_flows, policy_recommendation_job.py:714); shared by
+#: both dispatch paths so they cannot diverge.
+POLICY_TYPE_OPTION = {"anp-deny-applied": 1, "anp-deny-all": 2,
+                      "k8s-np": 3}
 
 
 class DuplicateJobError(Exception):
@@ -114,6 +110,18 @@ class TransientJobError(Exception):
     """A failure classification worth retrying — the runner died to a
     signal or fault-injected I/O, never a spec error (those fail
     fast)."""
+
+
+def _validate_max_len(spec) -> int:
+    """Pattern-mining maxLen ∈ {1,2,3}, enforced identically in both
+    dispatch modes (the runner's argparse would reject 4+ anyway —
+    thread mode must not silently accept what subprocess mode fails).
+    Absent → 3; 0 is rejected, not coerced."""
+    raw = spec.get("maxLen")
+    max_len = 3 if raw is None else int(raw)
+    if not 1 <= max_len <= 3:
+        raise ValueError(f"maxLen must be 1, 2, or 3, got {max_len}")
+    return max_len
 
 
 def job_id_from_name(kind: str, name: str) -> str:
@@ -460,33 +468,133 @@ class JobController:
             if self._deleted(record):
                 self._delete_results(record.kind, record.job_id)
 
+    def _push_spatial_alerts(self, record: JobRecord) -> None:
+        """Surface a completed spatial job's noise flows on the live
+        alert surface (GET /alerts) — batch results feed the streaming
+        ring the way the reference's batch TAD never could. Reads the
+        result table directly (result_stats stringifies every value;
+        alerts carry native types like the other alert kinds)."""
+        table = self.db.result_tables[_RESULT_TABLE[KIND_SPATIAL]]
+        data = table.scan()
+        if not len(data):
+            return
+        rows = data.filter(data.strings("id") == record.job_id)
+        # Cap the push: the alert ring is a bounded shared surface
+        # (ingest.MAX_ALERTS slots) — one large batch result must not
+        # evict every live streaming/heavy-hitter alert. Keep the
+        # highest-volume noise flows; the full set stays queryable via
+        # the job's results.
+        cap = 100
+        if len(rows) > cap:
+            logger.info(
+                "job %s: %d noise flows; publishing top %d by bytes",
+                record.name, len(rows), cap)
+            top = np.argsort(
+                np.asarray(rows["octetDeltaCount"]))[-cap:][::-1]
+            rows = rows.take(top)
+        src = rows.strings("sourceIP")
+        dst = rows.strings("destinationIP")
+        ports = np.asarray(rows["destinationTransportPort"])
+        octets = np.asarray(rows["octetDeltaCount"])
+        for i in range(len(rows)):
+            self.alert_sink({
+                "kind": "spatial_noise",
+                "job": record.name,
+                "sourceIP": str(src[i]),
+                "destinationIP": str(dst[i]),
+                "destinationTransportPort": int(ports[i]),
+                "octetDeltaCount": int(octets[i]),
+            })
+
     def _run_inprocess(self, record: JobRecord) -> None:
         # same site the runner child fires in subprocess dispatch, so
         # a transient execution fault is injectable in both modes
         _fire_fault("runner.exec", job=record.name)
         spec = record.spec
-        if record.kind != KIND_TAD:
-            raise NotImplementedError(NOT_PORTED[record.kind])
-        record.progress = JobProgress(record.job_id, TAD_STAGES)
-        run_tad(
-            self.db, str(spec.get("jobType", "EWMA")),
-            TadQuerySpec(
+        if record.kind == KIND_FPM:
+            from ..analytics.itemsets import DEFAULT_COLUMNS
+            record.progress = JobProgress(record.job_id, FPM_STAGES)
+            run_pattern_mining(
+                self.db,
+                min_support=int(spec.get("minSupport", 0) or 0),
+                columns=tuple(spec.get("columns") or DEFAULT_COLUMNS),
+                max_len=_validate_max_len(spec),
                 start_time=spec.get("startInterval") or None,
                 end_time=spec.get("endInterval") or None,
-                ns_ignore_list=spec.get("nsIgnoreList") or (),
-                agg_flow=str(spec.get("aggFlow", "") or ""),
-                pod_label=str(spec.get("podLabel", "") or ""),
-                pod_name=str(spec.get("podName", "") or ""),
-                pod_namespace=str(spec.get("podNameSpace", "") or ""),
-                external_ip=str(spec.get("externalIp", "") or ""),
-                svc_port_name=str(spec.get("servicePortName", "") or ""),
+                mining_id=record.job_id,
+                progress=record.progress,
+                device=self.device)
+            return
+        if record.kind == KIND_SPATIAL:
+            from ..analytics.spatial import (DEFAULT_EPS,
+                                             DEFAULT_MIN_SAMPLES)
+            record.progress = JobProgress(record.job_id,
+                                          SPATIAL_STAGES)
+            run_spatial(
+                self.db,
+                eps=float(spec.get("eps") or DEFAULT_EPS),
+                min_samples=int(spec.get("minSamples")
+                                or DEFAULT_MIN_SAMPLES),
+                start_time=spec.get("startInterval") or None,
+                end_time=spec.get("endInterval") or None,
+                spatial_id=record.job_id,
+                progress=record.progress,
+                device=self.device)
+            return
+        if record.kind == KIND_TAD:
+            record.progress = JobProgress(record.job_id, TAD_STAGES)
+            run_tad(
+                self.db, str(spec.get("jobType", "EWMA")),
+                TadQuerySpec(
+                    start_time=spec.get("startInterval") or None,
+                    end_time=spec.get("endInterval") or None,
+                    ns_ignore_list=spec.get("nsIgnoreList") or (),
+                    agg_flow=str(spec.get("aggFlow", "") or ""),
+                    pod_label=str(spec.get("podLabel", "") or ""),
+                    pod_name=str(spec.get("podName", "") or ""),
+                    pod_namespace=str(
+                        spec.get("podNameSpace", "") or ""),
+                    external_ip=str(spec.get("externalIp", "") or ""),
+                    svc_port_name=str(
+                        spec.get("servicePortName", "") or ""),
+                    cluster_uuid=str(
+                        spec.get("clusterUUID", "") or ""),
+                    # 0 = auto cadence; absent = reference-exact.
+                    refit_every=int(spec["refitEvery"])
+                    if spec.get("refitEvery") is not None else 1),
+                tad_id=record.job_id,
+                progress=record.progress,
+                device=self.device)
+        elif record.kind == KIND_DD:
+            record.progress = JobProgress(record.job_id, DD_STAGES)
+            run_drop_detection(
+                self.db,
+                job_type=str(spec.get("jobType", "initial")),
+                detection_id=record.job_id,
+                start_time=spec.get("startInterval") or None,
+                end_time=spec.get("endInterval") or None,
                 cluster_uuid=str(spec.get("clusterUUID", "") or ""),
-                # 0 = auto cadence; absent = reference-exact.
-                refit_every=int(spec["refitEvery"])
-                if spec.get("refitEvery") is not None else 1),
-            tad_id=record.job_id,
-            progress=record.progress,
-            device=self.device)
+                progress=record.progress,
+                device=self.device)
+        else:
+            record.progress = JobProgress(record.job_id, NPR_STAGES)
+            policy_type = validate_policy_type(
+                str(spec.get("policyType", "anp-deny-applied")))
+            option = POLICY_TYPE_OPTION[policy_type]
+            run_npr(
+                self.db,
+                recommendation_type=str(spec.get("jobType",
+                                                 "initial")),
+                limit=int(spec.get("limit", 0) or 0),
+                option=option,
+                start_time=spec.get("startInterval") or None,
+                end_time=spec.get("endInterval") or None,
+                ns_allow_list=spec.get("nsAllowList") or None,
+                rm_labels=bool(spec.get("excludeLabels", True)),
+                to_services=bool(spec.get("toServices", True)),
+                recommendation_id=record.job_id,
+                progress=record.progress,
+                device=self.device)
 
     # -- subprocess dispatch ---------------------------------------------
 

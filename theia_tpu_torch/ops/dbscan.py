@@ -19,6 +19,11 @@ a few long ones (`_plan`). `dbscan_scores` sends a CUDA tensor to B2
 (in float32, as the reference sends TPU work to its Pallas kernel; B2
 rounds float64 x itself) and a CPU tensor to `dbscan_noise` (in x's
 dtype, as the reference's XLA path on the CPU).
+
+`dbscan_points_noise` is the spatial variant over [N, F] point
+embeddings (theia_tpu/ops/dbscan.py:126): the same closed-form noise
+test over euclidean distance, in [block, N] tiles of torch ops with a
+full-float32 matmul, as the reference leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -242,3 +247,67 @@ def dbscan_scores(x: torch.Tensor, mask: torch.Tensor,
     calc = torch.zeros_like(x)
     std = masked_stddev_samp(x, mask)
     return calc, std, anomaly
+
+
+# -- spatial DBSCAN over [N, F] point embeddings ------------------------
+#
+# The BASELINE north-star config 3 generalization: "DBSCAN spatial
+# anomaly on (srcIP, dstIP, dstPort, bytes) embeddings". Same
+# closed-form noise test as the per-series kernel, over euclidean
+# distance in feature space, computed in [block, N] tiles so the full
+# [N, N] distance matrix never materializes: two passes (neighbour
+# counts, then core-reachability), each tile one matmul-shaped
+# distance evaluation.
+
+def _within(tile: torch.Tensor, points: torch.Tensor, x2: torch.Tensor,
+            eps2: float) -> torch.Tensor:
+    """[block, F] tile against [N, F] points → [block, N] bool,
+    d2 = (|t|² + |x|²) − 2·t·xᵀ ≤ eps², rounded as the reference
+    rounds it: 2·t·xᵀ is exact, so the subtraction rounds once, into
+    the sum's buffer."""
+    t2 = (tile * tile).sum(-1)
+    prod = tile @ points.T
+    d2 = t2[:, None] + x2[None, :]
+    d2.sub_(prod, alpha=2.0)
+    del prod
+    return d2 <= eps2
+
+
+def dbscan_points_noise(points: torch.Tensor, valid: torch.Tensor,
+                        eps: float, min_samples: int = DEFAULT_MIN_SAMPLES,
+                        block: int = 1024) -> torch.Tensor:
+    """Noise flags [N] bool for [N, F] float points (`valid` masks
+    padding), on the points' device. Exact O(N^2) pairwise
+    computation, O(N*block) memory.
+
+    The distance product runs in full float32: the reference asks XLA
+    for `Precision.HIGHEST`, and TF32 would keep ~10 mantissa bits of
+    products of ~scale² and swamp eps². So this switches TF32 off for
+    CUDA matmuls (process-wide, as ops/sketch.py does at import)
+    before its first product, whoever turned it on."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    points = points.to(torch.float32)
+    valid = valid.to(torch.bool)
+    n = points.shape[0]
+    pad = (-n) % block
+    if pad:
+        points = torch.cat([points, points.new_zeros((pad, points.shape[1]))])
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+    eps2 = eps * eps
+    x2 = (points * points).sum(-1)
+
+    counts = torch.empty(points.shape[0], dtype=torch.int64,
+                         device=points.device)
+    for i in range(0, points.shape[0], block):
+        w = _within(points[i:i + block], points, x2, eps2)
+        w &= valid[None, :]
+        counts[i:i + block] = w.sum(-1)
+    core = (counts >= min_samples) & valid
+
+    reachable = torch.empty_like(valid)
+    for i in range(0, points.shape[0], block):
+        w = _within(points[i:i + block], points, x2, eps2)
+        w &= core[None, :]
+        reachable[i:i + block] = w.any(-1)
+    noise = valid & ~core & ~reachable
+    return noise[:n]

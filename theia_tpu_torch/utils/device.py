@@ -20,3 +20,13 @@ def resolve_device(device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def single_device(mesh) -> None:
+    """Only one device is ported: `mesh` "auto" and None both mean it;
+    any other mesh raises rather than being ignored."""
+    if mesh is None or (isinstance(mesh, str) and mesh == "auto"):
+        return
+    raise NotImplementedError(
+        f"mesh {mesh!r}: running over several devices is not ported "
+        "(ROADMAP A16); pass mesh='auto' or None for one device")
