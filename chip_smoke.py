@@ -22,7 +22,13 @@ on the card:
     all 1,048,576 flows, and drop detection over a month of dropped
     flows. No Pallas kernel stands behind them: their device work is
     torch ops (sorts, scatter-adds, a blocked float32 matmul, masked
-    means).
+    means);
+  * the control plane: the same jobs through a manager started with
+    `--dispatch subprocess`, each in a `python -m
+    theia_tpu_torch.runner` child with its own CUDA context on the
+    same card (the DBSCAN child launches B2), a SIGKILLed child
+    retried, a child killed at its deadline, and /ingest (B1) after
+    both.
 
 Each phase prints one JSON line; any failure raises and the script
 exits non-zero. The last line of standard output is
@@ -40,10 +46,13 @@ from four producer streams through admission, dedup, the WAL, the
 parts store and the fused engine), its one-stream parity against the
 CPU, the TAD jobs through the intelligence API, then on the same
 manager the NPR, FPM, SAD and DD jobs (manager_jobs) each held against
-the port on the CPU (jobs_parity), a SIGKILL and restart of `python
--m theia_tpu_torch.manager` on its WAL, and the working-set state tier
-against an unbounded run; then the kernels line, the card's name and
-power limit, and the result line.
+the port on the CPU (jobs_parity), then the same jobs under subprocess
+dispatch over the store they left (manager_subprocess: rows against
+the thread-dispatch rows, dispatch overhead, nvidia-smi, the SIGKILL
+and deadline drills, /ingest and DBSCAN after them), a SIGKILL and
+restart of `python -m theia_tpu_torch.manager` on its WAL, and the
+working-set state tier against an unbounded run; then the kernels
+line, the card's name and power limit, and the result line.
 Imports nothing of JAX and nothing of the JAX package. Writes under
 the package's _build/ directories and, for the managers' WALs and
 parts, in temporary directories it removes.
@@ -1146,8 +1155,8 @@ CHILD_READY_S = 300.0
 TAD_JOB_TIMEOUT_S = 600.0
 #: the working-set drill: bench.py's working-set mix (every key once
 #: in random order, then half as many Zipf(1.3) re-arrivals, values
-#: uniform in [0, 1e3)) at four times the hot slots of every shard
-TIER_KEYS = 4 * N_SHARDS * CAPACITY
+#: uniform in [0, 1e3)) at twice the hot slots of every shard
+TIER_KEYS = 2 * N_SHARDS * CAPACITY
 TIER_ZIPF = 1.3
 #: the mix's one addition: this share of points 50x, so that the
 #: alert multisets compared are not empty
@@ -1530,12 +1539,15 @@ def run_job(port: int, algo: str) -> dict:
                        f"{TAD_JOB_TIMEOUT_S:.0f}s")
 
 
-def phase_manager_tad(blocks, flows, device) -> dict:
+def phase_manager_tad(blocks, flows, device, snapshot: str,
+                      kept: dict) -> dict:
     """The TAD configuration's flows through /ingest of the port's
     manager, then one EWMA and one DBSCAN job created, polled and
     retrieved through the intelligence API; B2's count set to 0 just
     before the DBSCAN job and read just after. Then the jobs slice on
-    the same manager and store (drive_jobs)."""
+    the same manager and store (drive_jobs). Last, the store as the
+    jobs left it is saved to `snapshot`, and each job's result rows and
+    SAD's points and flags go into `kept`, for manager_subprocess."""
     import tempfile
     from theia_tpu_torch.ops import dbscan
 
@@ -1551,6 +1563,7 @@ def phase_manager_tad(blocks, flows, device) -> dict:
             launches = dbscan.launches
             st = doc["status"]
             rows = doc.get("stats", [])
+            kept[f"tad-{algo}"] = doc
             out["jobs"][algo] = {
                 "job_s": st["endTime"] - st["startTime"],
                 "create_to_rows_s": polled_s,
@@ -1558,7 +1571,15 @@ def phase_manager_tad(blocks, flows, device) -> dict:
                 "missed_spikes": missed_spikes(flows, TAD_SERIES,
                                                api_rows(rows))}
         # the jobs slice on the same manager and store
-        out["manager_jobs"], out["jobs_parity"] = drive_jobs(port, device)
+        out["manager_jobs"], out["jobs_parity"] = drive_jobs(port, device,
+                                                            kept)
+        # the flows as whole columns: a parts-aware snapshot would point
+        # into this manager's part directory, which goes with it
+        t0 = time.perf_counter()
+        live_controller().db.save(snapshot, tables=("flows",),
+                                  compress=False)
+        out["snapshot"] = {"seconds": time.perf_counter() - t0,
+                           "bytes": os.path.getsize(snapshot)}
         return out
 
     with tempfile.TemporaryDirectory(prefix="theia-manager-tad-") as tmp:
@@ -1971,9 +1992,14 @@ class DeviceCall:
 def run_api_job(port: int, resource: str, body: dict) -> dict:
     """Create a job through the intelligence API, poll it, retrieve
     it with its results."""
+    http_json(port, f"{GROUP}/{resource}", "POST", body)
+    return poll_api_job(port, resource, body["metadata"]["name"])
+
+
+def poll_api_job(port: int, resource: str, name: str) -> dict:
+    """Poll a job through the intelligence API until it completes;
+    retrieve it with its results. A FAILED job raises."""
     path = f"{GROUP}/{resource}"
-    name = body["metadata"]["name"]
-    http_json(port, path, "POST", body)
     deadline = time.monotonic() + JOB_TIMEOUT_S
     while time.monotonic() < deadline:
         doc = http_json(port, f"{path}/{name}")
@@ -2073,14 +2099,15 @@ def policy_kinds(rows) -> dict:
     return out
 
 
-def drive_jobs(port: int, device) -> tuple:
+def drive_jobs(port: int, device, kept: dict) -> tuple:
     """The jobs slice through the API of the manager on `port`, over
     the flows it holds: NPR, FPM and SAD, then a month of dropped flows
     through POST /ingest and a DD job. After each job, its card vs CPU
     parity on the store as the job found it (the manager's own
     database, so the same dictionary codes: NPR's distinct order and
     SAD's hashed axes read them). Returns (the manager_jobs phase, the
-    jobs_parity phase)."""
+    jobs_parity phase); each job's API document goes into `kept`, and
+    SAD's points and flags as `sad-points`."""
     import uuid
     import torch
     db = live_controller().db
@@ -2121,6 +2148,9 @@ def drive_jobs(port: int, device) -> tuple:
                         torch.cuda.max_memory_allocated(),
                     "job_id": st["sparkApplication"]})
             name, doc, call, job = runs["timed"]
+            kept[kind] = doc
+            if kind == "sad":
+                kept["sad-points"] = call.kept[0]
             prof = runs["profiled"][3]
             job.update(name=name, device_stage=stage, profiled={
                 k: prof[k] for k in ("job_s", "stages_s", "device")})
@@ -2291,6 +2321,490 @@ def check_jobs_parity(got: dict) -> None:
         raise AssertionError(f"SAD recount: {got['sad']['full']}")
 
 
+# -- the control-plane slice: jobs in runner children -------------------
+
+#: the manager_subprocess phase's jobs, in order: (label, intelligence
+#: resource, name prefix, spec). Every job but DD reads the flows before
+#: the drop traffic only (its window ends on DD_DAY0), which are the
+#: flows the thread-dispatch jobs of manager_jobs read; DD reads the
+#: whole store, as its thread-dispatch job did.
+SUB_WINDOW = {"endInterval": DD_DAY0 * 86400}
+SUB_JOBS = (
+    ("tad-EWMA", "throughputanomalydetectors", "tad",
+     {"jobType": "EWMA", **SUB_WINDOW}),
+    ("tad-DBSCAN", "throughputanomalydetectors", "tad",
+     {"jobType": "DBSCAN", **SUB_WINDOW}),
+    *((kind, JOB_KINDS[kind][0], JOB_KINDS[kind][1],
+       {**JOB_KINDS[kind][2], **SUB_WINDOW}) for kind in ("npr", "fpm",
+                                                          "sad")),
+    ("dd", JOB_KINDS["dd"][0], JOB_KINDS["dd"][1], JOB_KINDS["dd"][2]),
+)
+#: the deadline drill's SAD deadline, and its memory check: the card's
+#: free memory back within SUB_FREED_SLACK bytes of its value before
+#: the spawn, within SUB_FREED_S seconds of the kill
+SUB_DEADLINE_S = 5.0
+SUB_FREED_SLACK = 1 << 30
+SUB_FREED_S = 10.0
+#: the kill lands within this of the deadline (the controller polls
+#: its child every 0.2 s)
+SUB_DEADLINE_LATE_S = 1.5
+#: the blocks posted after the drills: 65,536 flows of the ingest
+#: configuration, a day after the drop month, so that no windowed job
+#: reads them
+SUB_AFTER_SERIES = 8192
+SUB_AFTER_POINTS = 8
+SUB_AFTER_START = (DD_DAY0 + DD_DAYS + 1) * 86400
+#: the float columns of a job's rows, and their limits across two runs
+#: (the limits of the thread-dispatch card-vs-CPU checks)
+ROW_FLOATS = {"tad-EWMA": {"throughputStandardDeviation":
+                           TAD_STD_RTOL["float64"],
+                           "algoCalc": TAD_CALC_RTOL["EWMA"]},
+              "tad-DBSCAN": {"throughputStandardDeviation":
+                             TAD_STD_RTOL["float64"],
+                             "algoCalc": TAD_CALC_RTOL["DBSCAN"]},
+              "dd": {"avgDrop": DD_RTOL, "stdevDrop": DD_RTOL}}
+
+
+def job_rows(label: str, doc: dict) -> list:
+    """A job's result rows from its API document, in the form two runs
+    of the job compare in: without the job's id and creation time,
+    each as (exact columns, float columns), sorted. NPR's rows are its
+    policies."""
+    if label == "npr":
+        return sorted(((p,), ()) for p in
+                      doc["status"]["recommendationOutcome"].split("---\n"))
+    floats = tuple(ROW_FLOATS.get(label, {}))
+    skip = ("id", "timeCreated", *floats)
+    return sorted((tuple(sorted((k, v) for k, v in r.items()
+                                if k not in skip)),
+                   tuple(float(r[c]) for c in floats))
+                  for r in doc.get("stats", []))
+
+
+def compare_rows(label: str, got: list, want: list) -> dict:
+    """Two runs' rows (job_rows): the count, the rows whose exact
+    columns differ, and each float column's largest relative
+    difference."""
+    floats = tuple(ROW_FLOATS.get(label, {}))
+    out = {"rows": len(want), "count_equal": len(got) == len(want),
+           "exact_differ": 0,
+           "max_rel": {c: 0.0 for c in floats}}
+    if len(got) == len(want):
+        for g, w in zip(got, want):
+            out["exact_differ"] += g[0] != w[0]
+            for c, a, b in zip(floats, g[1], w[1]):
+                out["max_rel"][c] = max(out["max_rel"][c],
+                                        max_rel([a], [b]))
+    return out
+
+
+def sad_differ(got: list, want: list, db, kept) -> dict:
+    """SAD noise rows of a subprocess run (got) against the
+    thread-dispatch run (want), as multisets of (source, destination,
+    port, bytes): the rows in one and not the other, and how many of
+    those lie outside the float32 eps band. A differing row's point is
+    found among the thread run's points (`kept`: its embeddings and
+    flags) by its embedding, which those four columns determine, and
+    recounted in float64 (points_recount)."""
+    import collections
+    import numpy as np
+    import torch
+    from theia_tpu_torch.analytics import flow_embeddings
+    g = collections.Counter(r for r, _ in got)
+    w = collections.Counter(r for r, _ in want)
+    differ = list(((g - w) + (w - g)).elements())
+    out = {"noise": sum(w.values()), "noise_here": sum(g.values()),
+           "differ": len(differ), "differ_outside_band": 0}
+    if not differ:
+        return out
+    points, _ = kept
+    cols = ("sourceIP", "destinationIP", "destinationTransportPort",
+            "octetDeltaCount")
+    rows = [dict(r) for r in differ]
+    dicts = db.flows.dicts
+
+    def value(c, r):
+        if c not in dicts:
+            return int(r[c])
+        code = dicts[c].lookup(r[c])
+        return -1 if code is None else code
+
+    batch = {c: np.asarray([value(c, r) for r in rows], np.int64)
+             for c in cols}
+    emb = torch.from_numpy(flow_embeddings(batch)).to(points.device)
+    found = [(points == e).all(1).nonzero()[:, 0] for e in emb]
+    idx = [int(f[0]) for f in found if len(f)]
+    out["not_found"] = sum(not len(f) for f in found)
+    if idx:
+        _, amb = points_recount(points, idx, 1.0, 4)
+        out["ambiguous"] = int(amb.sum())
+        out["differ_outside_band"] = int((~amb).sum())
+    out["differ_outside_band"] += out["not_found"]
+    out["differ_rows"] = rows[:10]
+    return out
+
+
+def runner_summary(tail: str) -> dict:
+    """A runner child's stderr lines as the controller kept them
+    (runner_log_tail): its runner.job milliseconds, and its device line
+    (the torch device and the kernels' launches that moved)."""
+    out = {"runner_ms": None, "device": None, "launches": {}}
+    for line in tail.splitlines():
+        if line.startswith("timing runner.job: "):
+            out["runner_ms"] = float(line.split(": ")[1].split()[0])
+        elif line.startswith("device "):
+            head, *moved = line.split(", ")
+            out["device"] = head[len("device "):]
+            out["launches"] = {
+                k: int(n) for k, n in (m.split(" launches ")
+                                       for m in moved)}
+    return out
+
+
+class DispatchClock:
+    """While active, times the controller's own side of subprocess
+    dispatch: each database snapshot (seconds, bytes) and each merge of
+    a child's results into the store (seconds). take() returns the
+    events since the last take."""
+
+    def __init__(self, ctl):
+        self.ctl = ctl
+        self.events: list = []
+
+    def __enter__(self):
+        ctl, events = self.ctl, self.events
+        save, merge = ctl.db.save, ctl._merge_results
+
+        def timed_save(path, *args, **kw):
+            t0 = time.perf_counter()
+            out = save(path, *args, **kw)
+            events.append(("snapshot", time.perf_counter() - t0,
+                           os.path.getsize(path)))
+            return out
+
+        def timed_merge(record, results):
+            t0 = time.perf_counter()
+            out = merge(record, results)
+            events.append(("merge", time.perf_counter() - t0,
+                           os.path.getsize(results)
+                           if os.path.exists(results) else 0))
+            return out
+
+        ctl.db.save, ctl._merge_results = timed_save, timed_merge
+        return self
+
+    def __exit__(self, *exc):
+        del self.ctl.db.save, self.ctl._merge_results
+        return False
+
+    def take(self) -> dict:
+        events, self.events[:] = list(self.events), []
+        return {kind: [(s, b) for k, s, b in events if k == kind]
+                for kind in ("snapshot", "merge")}
+
+
+def compute_apps() -> list:
+    """The card's compute processes as nvidia-smi lists them: (pid,
+    used MiB) each."""
+    got = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    return [tuple(int(v) for v in line.split(","))
+            for line in got.stdout.strip().splitlines()
+            if line.strip() and line.split(",")[0].strip().isdigit()]
+
+
+class CardWatch:
+    """While active, a thread lists the card's compute processes
+    (`nvidia-smi --query-compute-apps=pid,used_memory`) and reads its
+    free memory (torch.cuda.mem_get_info, the whole card's) every half
+    second; `before` is the listing on entry."""
+
+    def __enter__(self):
+        import torch
+        self.before = compute_apps()
+        self.listings: list = []
+        self.min_free = torch.cuda.mem_get_info()[0]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll,
+                                        name="card-watch")
+        self._thread.start()
+        return self
+
+    def _poll(self):
+        import torch
+        while not self._stop.is_set():
+            self.listings.append(compute_apps())
+            self.min_free = min(self.min_free, torch.cuda.mem_get_info()[0])
+            self._stop.wait(0.5)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+    def used_mib(self, pid: int):
+        """The most memory nvidia-smi listed for `pid`, MiB; None if it
+        never listed the pid."""
+        seen = [mib for rows in self.listings for p, mib in rows
+                if p == pid]
+        return max(seen) if seen else None
+
+    def doc(self, pid: int, free_before: int) -> dict:
+        """What the watch saw of the child `pid`: nvidia-smi's memory
+        for it, the processes listed before and at most during, the
+        most memory listed beyond the listing before, and the card's
+        free memory before and at its lowest."""
+        base = sum(mib for _, mib in self.before)
+        return {"pid": pid, "nvidia_smi_mib": self.used_mib(pid),
+                "pids_listed": sorted({p for rows in self.listings
+                                       for p, _ in rows}),
+                "listings": len(self.listings),
+                "processes_before": len(self.before),
+                "processes_max": max((len(r) for r in self.listings),
+                                     default=0),
+                "listed_mib_over_before": max(
+                    (sum(m for _, m in r) - base for r in self.listings),
+                    default=0),
+                "free_before": free_before,
+                "min_free_during": self.min_free}
+
+
+def sub_job(label: str, doc: dict, record, clock: dict,
+            thread_s: float) -> dict:
+    """One subprocess job's times: the job (status endTime −
+    startTime), the child's runner.job span, their difference (the
+    dispatch overhead) and its parts — the snapshot, the merge, and the
+    rest (the child's start: interpreter, imports, CUDA context, then
+    its exit) — beside the thread-dispatch time of the same job."""
+    st = doc["status"]
+    summary = runner_summary(record.runner_log_tail)
+    job_s = st["endTime"] - st["startTime"]
+    runner_s = (summary["runner_ms"] or 0.0) / 1e3
+    snap_s = sum(s for s, _ in clock["snapshot"])
+    merge_s = sum(s for s, _ in clock["merge"])
+    return {"name": record.name, "pid": record.runner_pid,
+            "attempts": st["attempts"], "job_s": job_s,
+            "runner_job_s": runner_s,
+            "dispatch_overhead_s": job_s - runner_s,
+            "snapshot_s": snap_s,
+            "snapshot_bytes": sum(b for _, b in clock["snapshot"]),
+            "merge_s": merge_s,
+            "child_start_and_exit_s": job_s - runner_s - snap_s - merge_s,
+            "thread_job_s": thread_s, "device": summary["device"],
+            "launches": summary["launches"],
+            "runner_ms_seen": summary["runner_ms"] is not None}
+
+
+def after_blocks() -> list:
+    """The blocks posted after the drills (SUB_AFTER_*)."""
+    return tblk_blocks(dataclasses.replace(
+        cluster_config(SUB_AFTER_SERIES, SUB_AFTER_POINTS, seed=29),
+        start_time=SUB_AFTER_START))
+
+
+def connection_alerts(port: int) -> int:
+    return sum(a.get("kind") != "spatial_noise" for a in
+               http_json(port, f"/alerts?limit={RING}")["alerts"])
+
+
+def phase_manager_subprocess(snapshot: str, kept: dict, thread: dict,
+                             device) -> dict:
+    """`python -m theia_tpu_torch.manager --dispatch subprocess` over the
+    store manager_jobs left (`snapshot`): each job in a `python -m
+    theia_tpu_torch.runner` child on the card. (1) One job of each kind
+    through the API, its rows against the thread-dispatch job's
+    (`kept`; times `thread`), with its dispatch overhead; (2) while the
+    SAD child runs, nvidia-smi and the card's free memory watched, and
+    the DBSCAN child's stderr line read for its device and B2 launches;
+    (3) a SAD job with one retry whose child is SIGKILLed in its score
+    stage; (4) a SAD job past a 5 s deadline; (5) then /ingest blocks
+    (B1 in this process) and a DBSCAN job again."""
+    import tempfile
+    import uuid
+    import torch
+    from theia_tpu_torch.ops import fused_detector as fd
+    blocks = after_blocks()
+
+    def drive(port):
+        ctl = live_controller()
+        out: dict = {"store_rows": total_rows(port), "jobs": {},
+                     "rows": {}}
+        docs: dict = {}
+        with DispatchClock(ctl) as clock:
+            # (1) and (2): one job of each kind
+            for label, resource, prefix, spec in SUB_JOBS:
+                name = f"{prefix}-{uuid.uuid4()}"
+                with (CardWatch() if label == "sad"
+                      else contextlib.nullcontext()) as watch:
+                    free0 = torch.cuda.mem_get_info()[0]
+                    docs[label] = run_api_job(
+                        port, resource, {"metadata": {"name": name}, **spec})
+                record = ctl.get(name)
+                out["jobs"][label] = sub_job(label, docs[label], record,
+                                             clock.take(), thread[label])
+                got = job_rows(label, docs[label])
+                want = job_rows(label, kept[label])
+                out["rows"][label] = (
+                    sad_differ(got, want, ctl.db, kept["sad-points"])
+                    if label == "sad" else compare_rows(label, got, want))
+                if watch is not None:
+                    out["sad_on_card"] = watch.doc(record.runner_pid,
+                                                   free0)
+            # (3) SIGKILL drill
+            resource, prefix, spec = SUB_JOBS[4][1:]
+            name = f"{prefix}-{uuid.uuid4()}"
+            http_json(port, f"{GROUP}/{resource}", "POST",
+                      {"metadata": {"name": name}, **spec, "retries": 1})
+            record = ctl.get(name)
+            deadline = time.monotonic() + JOB_TIMEOUT_S
+            while time.monotonic() < deadline and record.state in (
+                    "SCHEDULED", "RUNNING") and not (
+                    record.runner_pid and record.progress is not None
+                    and record.progress.snapshot()["completedStages"] >= 2):
+                time.sleep(0.05)
+            killed = record.runner_pid
+            stage_at_kill = record.progress.snapshot()["completedStages"]
+            os.kill(killed, signal.SIGKILL)
+            doc = poll_api_job(port, resource, name)
+            st = doc["status"]
+            out["sigkill"] = {
+                "killed_pid": killed, "completed_stages_at_kill":
+                    stage_at_kill,
+                "state": st["state"], "attempts": st["attempts"],
+                "last_failure": st["lastFailureReason"],
+                "retry_pid": record.runner_pid,
+                "killed_pid_gone": not pid_alive(killed),
+                "job_s": st["endTime"] - st["startTime"],
+                "rows_equal_step1": job_rows("sad", doc)
+                == job_rows("sad", docs["sad"])}
+            clock.take()
+            # (4) deadline drill
+            name = f"{prefix}-{uuid.uuid4()}"
+            free0 = torch.cuda.mem_get_info()[0]
+            min_free = free0
+            http_json(port, f"{GROUP}/{resource}", "POST",
+                      {"metadata": {"name": name}, **spec, "retries": 1,
+                       "deadlineSeconds": SUB_DEADLINE_S})
+            record = ctl.get(name)
+            deadline = time.monotonic() + JOB_TIMEOUT_S
+            while time.monotonic() < deadline and record.state in (
+                    "SCHEDULED", "RUNNING"):
+                min_free = min(min_free, torch.cuda.mem_get_info()[0])
+                time.sleep(0.05)
+            t_end = time.monotonic()
+            free_after = torch.cuda.mem_get_info()[0]
+            while free_after < free0 - SUB_FREED_SLACK \
+                    and time.monotonic() - t_end < SUB_FREED_S:
+                time.sleep(0.1)
+                free_after = torch.cuda.mem_get_info()[0]
+            snap = clock.take()["snapshot"]
+            out["deadline"] = {
+                "deadline_s": SUB_DEADLINE_S, "state": record.state,
+                "error": record.error_msg, "attempts": record.attempts,
+                "job_s": record.end_time - record.start_time,
+                "snapshot_s": sum(s for s, _ in snap),
+                "pid": record.runner_pid,
+                "pid_gone": not pid_alive(record.runner_pid),
+                "free_before": free0, "min_free_during": min_free,
+                "free_after": free_after,
+                "freed_within_s": time.monotonic() - t_end}
+            out["deadline"]["kill_after_spawn_s"] = (
+                out["deadline"]["job_s"] - out["deadline"]["snapshot_s"])
+            # (5) the manager still works
+            b1 = fd.launches
+            alerts = connection_alerts(port)
+            sent = send_blocks(port, blocks, PRODUCERS, "after-drills")
+            out["after"] = {"blocks": len(blocks), "acked": sent["rows"],
+                            "ack_alerts": sent["alerts"],
+                            "b1_launches": fd.launches - b1,
+                            "connection_alerts_before": alerts,
+                            "connection_alerts_after":
+                                connection_alerts(port)}
+            label, resource, prefix, spec = SUB_JOBS[1]
+            name = f"{prefix}-{uuid.uuid4()}"
+            doc = run_api_job(port, resource,
+                              {"metadata": {"name": name}, **spec})
+            again = sub_job(label, doc, ctl.get(name), clock.take(),
+                            thread[label])
+            again["rows_equal_step1"] = job_rows(label, doc) == \
+                job_rows(label, docs[label])
+            out["after"]["dbscan"] = again
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="theia-manager-sub-") as tmp:
+        args = [*manager_args(tmp, device), "--dispatch", "subprocess",
+                "--db", snapshot, "--checkpoint-interval", "0"]
+        t0 = time.perf_counter()
+        out = run_manager(args, manager_env(tmp), drive)
+        out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def check_manager_subprocess(got: dict, device) -> None:
+    for label, job in got["jobs"].items():
+        if job["device"] != str(device) or not job["runner_ms_seen"]:
+            raise AssertionError(f"{label} child not on {device}: {job}")
+    for label, rows in got["rows"].items():
+        if label == "sad":
+            if rows["differ_outside_band"] or not rows["noise"]:
+                raise AssertionError(f"SAD rows thread vs subprocess: "
+                                     f"{rows}")
+            continue
+        limits = ROW_FLOATS.get(label, {})
+        if not (rows["count_equal"] and rows["rows"]) \
+                or rows["exact_differ"] \
+                or any(rows["max_rel"][c] > limits[c] for c in limits):
+            raise AssertionError(f"{label} rows thread vs subprocess "
+                                 f"beyond {limits}: {rows}")
+    if got["jobs"]["tad-DBSCAN"]["launches"].get("B2", 0) < 1:
+        raise AssertionError("the DBSCAN child launched no B2")
+    card = got["sad_on_card"]
+    # nvidia-smi lists the child's pid; or, where the sandbox's pid
+    # namespace hides the real pids (nvidia-smi then lists other
+    # numbers), it lists one more compute process, or a GiB more
+    # memory, while the child runs than before its spawn, and the
+    # card's free memory falls by more than a GiB meanwhile
+    if card["nvidia_smi_mib"] is None and not (
+            (card["processes_max"] > card["processes_before"]
+             or card["listed_mib_over_before"] * 2 ** 20
+             >= SUB_FREED_SLACK)
+            and card["free_before"] - card["min_free_during"]
+            >= SUB_FREED_SLACK):
+        raise AssertionError(f"the SAD child was not seen on the card: "
+                             f"{card}")
+    kill = got["sigkill"]
+    if not (kill["state"] == "COMPLETED" and kill["attempts"] == 2
+            and kill["completed_stages_at_kill"] >= 2
+            and "signal 9" in kill["last_failure"]
+            and kill["killed_pid_gone"] and kill["rows_equal_step1"]):
+        raise AssertionError(f"SIGKILL drill: {kill}")
+    dl = got["deadline"]
+    if not (dl["state"] == "FAILED" and "DeadlineExceeded" in dl["error"]
+            and dl["attempts"] == 1 and dl["pid_gone"]
+            and SUB_DEADLINE_S <= dl["kill_after_spawn_s"]
+            <= SUB_DEADLINE_S + SUB_DEADLINE_LATE_S
+            and dl["free_after"] >= dl["free_before"] - SUB_FREED_SLACK):
+        raise AssertionError(f"deadline drill: {dl}")
+    after = got["after"]
+    if not (after["acked"] == SUB_AFTER_SERIES * SUB_AFTER_POINTS
+            and after["b1_launches"] >= 1
+            and after["connection_alerts_after"]
+            > after["connection_alerts_before"]
+            and after["dbscan"]["rows_equal_step1"]
+            and after["dbscan"]["launches"].get("B2", 0) >= 1):
+        raise AssertionError(f"the manager after the drills: {after}")
+
+
 # -- main ---------------------------------------------------------------
 
 def main() -> int:
@@ -2316,7 +2830,7 @@ def main() -> int:
          shapes=scan_rows)
 
     t0 = time.perf_counter()
-    main_blocks = tblk_blocks(cluster_config(300_000, 4, seed=7))
+    main_blocks = tblk_blocks(cluster_config(150_000, 4, seed=7))
     parity_blocks = tblk_blocks(cluster_config(20_000, 8, seed=11))
     emit("traffic", seconds=time.perf_counter() - t0,
          main_blocks=len(main_blocks), parity_blocks=len(parity_blocks))
@@ -2404,14 +2918,30 @@ def main() -> int:
     tad_blocks = encode_blocks(flows)
     emit("manager_tad_traffic", seconds=time.perf_counter() - t0,
          blocks=len(tad_blocks))
-    manager_tad = phase_manager_tad(tad_blocks, flows, device)
-    jobs = manager_tad.pop("manager_jobs")
-    jobs_parity = manager_tad.pop("jobs_parity")
-    emit("manager_tad", **manager_tad)
-    emit("manager_jobs", **jobs)
-    emit("jobs_parity", dd_rtol=DD_RTOL, eps_band=EPS_BAND, **jobs_parity)
-    check_jobs_parity(jobs_parity)
-    del flows, tad_blocks
+    import tempfile
+    kept: dict = {}
+    with tempfile.TemporaryDirectory(prefix="theia-jobs-store-") as keep:
+        snapshot = os.path.join(keep, "store.npz")
+        manager_tad = phase_manager_tad(tad_blocks, flows, device,
+                                        snapshot, kept)
+        jobs = manager_tad.pop("manager_jobs")
+        jobs_parity = manager_tad.pop("jobs_parity")
+        emit("manager_tad", **manager_tad)
+        emit("manager_jobs", **jobs)
+        emit("jobs_parity", dd_rtol=DD_RTOL, eps_band=EPS_BAND,
+             **jobs_parity)
+        check_jobs_parity(jobs_parity)
+        del flows, tad_blocks
+        # The control-plane slice: the same jobs, each in a runner
+        # child, over the store the jobs above left.
+        thread_s = {f"tad-{algo}": manager_tad["jobs"][algo]["job_s"]
+                    for algo in ("EWMA", "DBSCAN")}
+        thread_s.update({kind: jobs[kind]["job_s"] for kind in JOB_KINDS})
+        sub = phase_manager_subprocess(snapshot, kept, thread_s, device)
+        del kept
+    emit("manager_subprocess", deadline_late_s=SUB_DEADLINE_LATE_S,
+         freed_slack=SUB_FREED_SLACK, freed_s=SUB_FREED_S, **sub)
+    check_manager_subprocess(sub, device)
     emit("manager_restart",
          **phase_manager_restart(main_blocks[:RESTART_BLOCKS], device))
     tier = phase_state_tier(device)
@@ -2429,7 +2959,11 @@ def main() -> int:
         launches=manager_tad["jobs"]["DBSCAN"]["b2_launches"],
         launches_by_path={
             "tad_path": tad["algos"]["DBSCAN"]["b2_launches"],
-            "manager_tad": manager_tad["jobs"]["DBSCAN"]["b2_launches"]})
+            "manager_tad": manager_tad["jobs"]["DBSCAN"]["b2_launches"],
+            # counted in the DBSCAN job's runner child, read from the
+            # stderr line the controller kept
+            "manager_subprocess": sub["jobs"]["tad-DBSCAN"][
+                "launches"].get("B2", 0)})
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -70,6 +70,15 @@ COPIES = (
     "runner/__init__.py",
     # the request handlers import the cluster transport's peer header
     "cluster/transport.py",
+    "manager/reconciler.py",
+    "dashboards/__init__.py",
+    "dashboards/grafana.py",
+    "dashboards/queries.py",
+    "dashboards/web.py",
+    "analysis/__init__.py",
+    "analysis/base.py",
+    "analysis/lint.py",
+    "analysis/lockgraph.py",
 )
 
 #: derived module → {unit that may differ: why}. A unit is a top-level
@@ -112,23 +121,48 @@ DERIVED = {
         "IngestManager.__init__": "takes device= for the detectors",
     },
     "manager/jobs.py": {
-        "JobController.__init__": "takes device=; refuses subprocess "
-                                  "dispatch (ROADMAP A17)",
+        "JobController.__init__": "takes device=",
         "JobController._run_inprocess": "every job kind on the "
                                         "controller's device",
-        # unreachable once subprocess dispatch is refused: _run keeps
-        # its call to _run_subprocess, never taken
-        "_STAGES": "left out: subprocess dispatch only (ROADMAP A17)",
-        "JobController._fmt_time": "left out: subprocess dispatch only "
-                                   "(ROADMAP A17)",
-        "JobController._runner_args": "left out: subprocess dispatch "
-                                      "only (ROADMAP A17)",
-        "JobController._runner_cmd": "left out: subprocess dispatch "
-                                     "only (ROADMAP A17)",
-        "JobController._run_subprocess": "left out: subprocess dispatch "
-                                         "only (ROADMAP A17)",
-        "JobController._merge_results": "left out: subprocess dispatch "
-                                        "only (ROADMAP A17)",
+        "JobController._runner_cmd": "the port's runner, with --device "
+                                     "the controller's resolved device",
+    },
+    "runner/__main__.py": {
+        "_add_common_job_flags": "--device (default cuda), the torch "
+                                 "device of the job's analytics",
+        "build_parser": "prog theia_tpu_torch.runner",
+        "run_tad_job": "passes device=",
+        "run_npr_job": "passes device=",
+        "run_dd_job": "passes device=",
+        "run_patterns_job": "passes device=",
+        "run_spatial_job": "passes device=",
+        "main": "resolve_device(--device) in place of the JAX_PLATFORMS "
+                "update, exiting non-zero without a card; after the "
+                "timing lines one stderr line with the device and the "
+                "B1/B2 launches that moved, the trace summary's "
+                "counterpart for the card (the parent reads a child's "
+                "kernels only from its stderr tail)",
+    },
+    "analysis/__main__.py": {
+        "run_all": "scans theia_tpu_torch/, with chip_smoke.py (the "
+                   "port's script that starts managers with knobs) in "
+                   "place of bench.py",
+        "main": "prog python -m theia_tpu_torch.analysis and the "
+                "package name in the summary line",
+    },
+    "analysis/waivers.py": {
+        "WAIVERS": "the reference's waivers at the port's paths, "
+                   "invariants unchanged; left out, as the gate fails "
+                   "a waiver that matches nothing: the cluster tier's "
+                   "torn-read:cluster/node.py:ClusterNode:*, "
+                   "swallowed-except:cluster/node.py:handle_resync and "
+                   "swallowed-except:cluster/replication.py:stats "
+                   "(ROADMAP A19), the CLI's "
+                   "swallowed-except:cli/__main__.py:_urlopen and "
+                   "swallowed-except:cli/__main__.py:main (ROADMAP "
+                   "A21), and swallowed-except:manager/stats.py:"
+                   "device_infos, whose torch rewrite probes "
+                   "torch.cuda without a try",
     },
     "analytics/npr.py": {
         "read_distinct_flows": "takes device= for the port's "
@@ -174,8 +208,8 @@ DERIVED = {
                                    "jax.profiler",
     },
     "manager/__main__.py": {
-        "main": "--device in place of JAX_PLATFORMS; the cluster and "
-                "reconciler flags refused (ROADMAP A19)",
+        "main": "--device in place of JAX_PLATFORMS; the cluster "
+                "flags refused (ROADMAP A19)",
     },
 }
 

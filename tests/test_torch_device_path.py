@@ -31,6 +31,7 @@ from theia_tpu_torch.ops import fused_detector as fd
 from theia_tpu_torch.ops import sketch
 from theia_tpu_torch.store import FlowDatabase as PortFlowDatabase
 from theia_tpu_torch.store import wire as port_wire
+from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 HH_RTOL = 1e-5
 

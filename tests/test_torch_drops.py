@@ -24,6 +24,7 @@ from theia_tpu.store import FlowDatabase as RefDatabase
 from theia_tpu_torch.analytics import drop_detection as port_dd
 from theia_tpu_torch.ops import drops as port_drops
 from theia_tpu_torch.store import FlowDatabase
+from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 RTOL = 1e-6
 DAY = 86400

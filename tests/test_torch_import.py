@@ -19,7 +19,9 @@ PORT_FILES = sorted((REPO / "theia_tpu_torch").rglob("*.py")) + [
 #: modules the fresh-process probe must find and import: the scoring
 #: path and, from the manager slice on, the request half, the store,
 #: the query layer and the control plane; from the jobs slice on, the
-#: NPR, pattern-mining, spatial and drop-detection jobs
+#: NPR, pattern-mining, spatial and drop-detection jobs; from the
+#: control-plane slice on, the job runner, the reconciler, the
+#: dashboards and the static analysis passes
 SLICE_MODULES = (
     "theia_tpu_torch.ops.fused_detector",
     "theia_tpu_torch.ops.dbscan",
@@ -47,6 +49,12 @@ SLICE_MODULES = (
     "theia_tpu_torch.obs.trace",
     "theia_tpu_torch.cluster.transport",
     "theia_tpu_torch.runner.progress",
+    "theia_tpu_torch.runner.__main__",
+    "theia_tpu_torch.manager.reconciler",
+    "theia_tpu_torch.dashboards",
+    "theia_tpu_torch.dashboards.web",
+    "theia_tpu_torch.analysis.lockgraph",
+    "theia_tpu_torch.analysis.__main__",
 )
 
 _PROBE = """

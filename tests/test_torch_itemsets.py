@@ -25,6 +25,7 @@ from theia_tpu_torch.analytics import itemsets as port_its
 from theia_tpu_torch.data.synth import generate_flows as port_generate
 from theia_tpu_torch.schema import FLOW_SCHEMA, ColumnarBatch
 from theia_tpu_torch.store import FlowDatabase
+from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 COLUMNS = ("sourcePodNamespace", "destinationPodNamespace",
            "destinationTransportPort")

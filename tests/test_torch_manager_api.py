@@ -45,6 +45,7 @@ from theia_tpu.store import FlowDatabase as RefDatabase
 from theia_tpu.store import wire as ref_wire
 from theia_tpu_torch.manager import TheiaManagerServer
 from theia_tpu_torch.store import FlowDatabase
+from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 HH_RTOL = 1e-5
@@ -379,12 +380,13 @@ def test_restart_across_packages_on_one_wal(tmp_path, first, second):
         _stop(srv, db)
 
 
-def test_server_refuses_subprocess_dispatch_and_stops_its_engine():
-    """The job runner is not ported (ROADMAP A17): the server refuses
-    the dispatch mode, and closes the fused engine it had started."""
+def test_server_whose_controller_fails_stops_its_engine():
+    """A job controller that cannot be built (here an unknown dispatch
+    mode) fails the server, which closes the fused engine it had
+    started."""
     before = {t.name for t in threading.enumerate()}
-    with pytest.raises(ValueError, match="ROADMAP A17"):
-        TheiaManagerServer(FlowDatabase(), port=0, dispatch="subprocess",
+    with pytest.raises(ValueError, match="unknown dispatch mode"):
+        TheiaManagerServer(FlowDatabase(), port=0, dispatch="bogus",
                            ingest_shards=1, device="cpu")
     after = {t.name for t in threading.enumerate()}
     assert not {n for n in after - before if "fused" in n}
@@ -411,8 +413,6 @@ def test_server_refuses_the_cluster_tier(how, monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["--peers", "n0=http://127.0.0.1:1"], "ROADMAP A19"),
     (["--role", "peer"], "ROADMAP A19"),
-    (["--reconcile-dir", "crs"], "ROADMAP A19"),
-    (["--dispatch", "subprocess"], "ROADMAP A17"),
 ])
 def test_entry_point_refuses_what_is_not_ported(argv, item, capsys):
     from theia_tpu_torch.manager.__main__ import main

@@ -27,6 +27,7 @@ from theia_tpu.store import wire as ref_wire
 from theia_tpu_torch.manager.admission import AdmissionRejected
 from theia_tpu_torch.manager.ingest import IngestManager
 from theia_tpu_torch.store import FlowDatabase
+from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 HH_RTOL = 1e-5
 N_SHARDS = 2

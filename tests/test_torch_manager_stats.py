@@ -21,6 +21,7 @@ from theia_tpu_torch.manager import TheiaManagerServer
 from theia_tpu_torch.manager.profiling import ProfileManager
 from theia_tpu_torch.manager.stats import StatsProvider
 from theia_tpu_torch.store import FlowDatabase
+from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 
 def test_device_info_on_the_cpu_is_the_no_backend_entry(monkeypatch):

@@ -25,6 +25,7 @@ from theia_tpu_torch.analytics import npr as port_npr
 from theia_tpu_torch.analytics import npr_device as port_dev
 from theia_tpu_torch.data.synth import generate_flows as port_generate
 from theia_tpu_torch.store import FlowDatabase
+from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 
 def _keys(seed, n, k=9, card=17):

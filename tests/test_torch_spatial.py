@@ -35,6 +35,7 @@ from theia_tpu_torch.data.synth import generate_flows as port_generate
 from theia_tpu_torch.ops import dbscan as port_dbscan
 from theia_tpu_torch.schema import FLOW_SCHEMA, ColumnarBatch
 from theia_tpu_torch.store import FlowDatabase
+from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

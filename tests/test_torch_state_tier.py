@@ -24,6 +24,7 @@ from theia_tpu_torch.ingest import state_tier
 from theia_tpu_torch.manager.ingest import IngestManager
 from theia_tpu_torch.schema import ColumnarBatch, StringDictionary
 from theia_tpu_torch.store import FlowDatabase
+from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 
 def _key(i):

@@ -2,13 +2,16 @@
 
 Ports theia_tpu/manager/__main__.py. `--device` (default cuda) is
 where the detectors and the jobs' analytics run; without a card the
-manager exits unless `--device cpu` is given. The multi-node flags
-(--peers, --node-id, --role, --repl-acks) and --reconcile-dir are not
-ported yet (ROADMAP A19) and exit with an error.
+manager exits unless `--device cpu` is given. `--dispatch subprocess`
+runs each job in a `python -m theia_tpu_torch.runner` child on the same
+device, and `--reconcile-dir` reconciles CR documents into jobs, as in
+the reference. The multi-node flags (--peers, --node-id, --role,
+--repl-acks) and THEIA_CLUSTER_PEERS are not ported yet (ROADMAP A19)
+and exit with an error.
 
 Usage:
   python -m theia_tpu_torch.manager [--device cuda|cpu] [--db flows.npz]
-      [--port 11347]
+      [--port 11347] [--dispatch thread|subprocess] [--reconcile-dir DIR]
       [--address 0.0.0.0] [--capacity-bytes N] [--ttl-seconds N]
       [--synth N_SERIES] [--tls-cert-dir DIR [--tls-cert F --tls-key F
       [--tls-ca F]]] [--auth-token-file F | --auth-token T]
@@ -114,10 +117,12 @@ def main(argv=None) -> None:
     p.add_argument("--workers", type=int, default=2)
     p.add_argument("--dispatch", default="thread",
                    choices=["thread", "subprocess"],
-                   help="job execution: in-process worker threads; "
-                        "subprocess (one job-runner child per job) is "
-                        "not ported yet (ROADMAP A17) and exits with "
-                        "an error")
+                   help="job execution: in-process worker threads, or "
+                        "one `python -m theia_tpu_torch.runner` child "
+                        "per job on --device (process isolation — a "
+                        "crashing kernel fails the JOB, not the "
+                        "manager; the reference's Spark driver/executor "
+                        "boundary)")
     p.add_argument("--synth", type=int, default=0,
                    help="seed the store with N synthetic series")
     p.add_argument("--shards", type=int, default=1,
@@ -175,14 +180,10 @@ def main(argv=None) -> None:
     for flag, value in (("--peers", args.peers),
                         ("--node-id", args.node_id),
                         ("--role", args.role),
-                        ("--repl-acks", args.repl_acks),
-                        ("--reconcile-dir", args.reconcile_dir)):
+                        ("--repl-acks", args.repl_acks)):
         if value is not None:
-            p.error(f"{flag}: the cluster tier and the reconciler are "
-                    "not ported to theia_tpu_torch yet (ROADMAP A19)")
-    if args.dispatch == "subprocess":
-        p.error("--dispatch subprocess: the job runner is not ported to "
-                "theia_tpu_torch yet (ROADMAP A17)")
+            p.error(f"{flag}: the cluster tier is not ported to "
+                    "theia_tpu_torch yet (ROADMAP A19)")
     if os.environ.get("THEIA_CLUSTER_PEERS", "").strip():
         p.error("THEIA_CLUSTER_PEERS: the cluster tier is not ported to "
                 "theia_tpu_torch yet (ROADMAP A19)")
@@ -362,15 +363,27 @@ def main(argv=None) -> None:
         print(f"checkpointing {args.db} every "
               f"{args.checkpoint_interval:g}s", file=sys.stderr)
 
+    reconciler = None
+    if args.reconcile_dir:
+        from .reconciler import DeclarativeReconciler
+        reconciler = DeclarativeReconciler(server.controller,
+                                           args.reconcile_dir)
+        reconciler.start()
+        print(f"reconciling CRs in {args.reconcile_dir}",
+              file=sys.stderr)
+
     signal.signal(signal.SIGINT, stop)
     signal.signal(signal.SIGTERM, stop)
     server.serve_forever()
     # Ordered drain: the HTTP server is already closed (no NEW ingest
-    # or job submissions), so: drain in-flight jobs, then shut the server stack down — which now WAITS for the
+    # or job submissions), so: finish reconciliation, drain in-flight
+    # jobs, then shut the server stack down — which now WAITS for the
     # ingest insert pool (queued store-insert legs were acknowledged
     # work; dropping them on SIGTERM violated the durability
     # contract) — and only then fsync the WAL and take the final
     # checkpoint.
+    if reconciler:
+        reconciler.stop()
     server.controller.wait_all(timeout=60)
     server.shutdown()
     _persist_on_shutdown(db, args.db, checkpointer, log)

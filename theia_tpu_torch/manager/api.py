@@ -40,7 +40,7 @@ Ports theia_tpu/manager/api.py: the handler is the reference's, and
 `TheiaManagerServer(device=...)` (default "cuda") places the ingest
 detectors, the job controller's analytics, the device stats and the
 profiler on that device; without CUDA it raises unless device="cpu".
-The dashboard routes (theia_tpu/dashboards) are not ported yet.
+The dashboard routes serve the port's copy of the dashboards package.
 """
 
 from __future__ import annotations

@@ -1,12 +1,5 @@
 """Job records + controller state machine for NPR/TAD jobs.
 
-Ports theia_tpu/manager/jobs.py. In the port, jobs run on in-process
-worker threads on the controller's device (`device=`, default "cuda"):
-every job kind the reference serves in process — TAD (whose DBSCAN
-reaches the B2 kernel on the card), NPR, pattern mining, spatial and
-drop detection — runs its device work there. `dispatch="subprocess"`
-(the job runner, ROADMAP A17) is refused at construction.
-
 Re-provides the reference's CRD controllers
 (pkg/controller/networkpolicyrecommendation/controller.go and
 pkg/controller/anomalydetector/controller.go): a job CR moves through
@@ -16,17 +9,44 @@ controller.go:375-427), with progress scraped into status while RUNNING
 (cleanupNPRecommendation :390-403), and stale result rows reconciled
 against live CRs at startup (HandleStaleDbEntries util.go:239-270).
 
-The reference's second dispatch mode, a `python -m theia_tpu.runner`
-child per job against a snapshot of the database, waits for the
-runner's port (ROADMAP A17); so do the subprocess-only units of the
-reference's controller (_runner_args, _run_subprocess, ...), which
-this module leaves out.
+Two dispatch modes mirror the reference's two execution tiers:
+
+  dispatch="thread"      — jobs run on in-process worker threads
+                           against the shared FlowDatabase (the quick
+                           path; no isolation).
+  dispatch="subprocess"  — each job runs as a `python -m
+                           theia_tpu_torch.runner` child process against a
+                           snapshot of the database, with progress
+                           scraped from --progress-file and result
+                           rows merged back on success. This is the
+                           reference's Spark driver/executor process
+                           boundary (pkg/controller/util.go:129-159,
+                           223-293): a crashing or OOMing kernel kills
+                           the RUNNER, not the manager — the record
+                           goes FAILED with the child's stderr tail.
+                           Device access is serialized across jobs
+                           (one child owns the accelerator at a time).
+
+Ports theia_tpu/manager/jobs.py. Both modes run a job's device work on
+the controller's torch device (`device=`, default "cuda"): thread
+dispatch passes it to the analytics entry points, subprocess dispatch
+hands it to a `python -m theia_tpu_torch.runner` child as `--device`
+(for example `cuda:0`). The child builds its own CUDA context, so a
+device-side assert or an out-of-memory in a job cannot break the one
+the manager's live scoring uses.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import json
+import os
 import queue
+import shutil
+import subprocess
+import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -40,8 +60,11 @@ from ..analytics import (TadQuerySpec, run_drop_detection, run_npr,
                          run_pattern_mining, run_spatial, run_tad)
 from ..obs import metrics as _obs_metrics
 from ..obs import trace as _obs_trace
+from ..runner.__main__ import TIME_FORMAT as RUNNER_TIME_FORMAT
+from ..runner.__main__ import TRANSIENT_EXIT_CODE
 from ..runner.progress import (DD_STAGES, FPM_STAGES, NPR_STAGES,
-                               SPATIAL_STAGES, TAD_STAGES, JobProgress)
+                               SPATIAL_STAGES, TAD_STAGES,
+                               FileProgress, JobProgress)
 from ..store import FlowDatabase
 from ..utils import get_logger, parse_job_name, validate_policy_type
 from ..utils.backoff import capped_backoff
@@ -88,6 +111,10 @@ _NAME_PREFIX = {KIND_NPR: "pr-", KIND_TAD: "tad-", KIND_DD: "dd-",
 _RESULT_TABLE = {KIND_NPR: "recommendations", KIND_TAD: "tadetector",
                  KIND_DD: "dropdetection", KIND_FPM: "flowpatterns",
                  KIND_SPATIAL: "spatialnoise"}
+
+_STAGES = {KIND_NPR: NPR_STAGES, KIND_TAD: TAD_STAGES,
+           KIND_DD: DD_STAGES, KIND_FPM: FPM_STAGES,
+           KIND_SPATIAL: SPATIAL_STAGES}
 
 #: policy mode → job --option (reference recommend_policies_for_
 #: unprotected_flows, policy_recommendation_job.py:714); shared by
@@ -183,10 +210,6 @@ class JobController:
                  retry_backoff_base: float = 0.5,
                  retry_backoff_cap: float = 30.0,
                  device="cuda") -> None:
-        if dispatch == "subprocess":
-            raise ValueError(
-                "dispatch='subprocess' needs the job runner, which is "
-                "not ported to theia_tpu_torch yet (ROADMAP A17)")
         if dispatch not in ("thread", "subprocess"):
             raise ValueError(f"unknown dispatch mode {dispatch!r}")
         self.device = resolve_device(device)
@@ -598,12 +621,220 @@ class JobController:
 
     # -- subprocess dispatch ---------------------------------------------
 
+    def _fmt_time(self, value) -> str:
+        # RUNNER_TIME_FORMAT: the runner CLI's own constant, so the
+        # controller's formatting can't drift from its parsing.
+        return datetime.datetime.fromtimestamp(
+            int(value), tz=datetime.timezone.utc
+        ).strftime(RUNNER_TIME_FORMAT)
+
+    def _runner_args(self, record: JobRecord) -> List[str]:
+        """record.spec → the runner's Spark-job-shaped CLI argv
+        (reverse of the controllers' arg-build,
+        pkg/controller/anomalydetector/controller.go:525-620).
+        Validation errors raise here, before a process is spawned."""
+        spec = record.spec
+        args: List[str] = []
+        if record.kind == KIND_TAD:
+            args += ["tad", "--algo", str(spec.get("jobType", "EWMA"))]
+            if spec.get("nsIgnoreList"):
+                args += ["-n", json.dumps(spec["nsIgnoreList"])]
+            for flag, key in (
+                    ("--agg-flow", "aggFlow"),
+                    ("--pod-label", "podLabel"),
+                    ("--pod-name", "podName"),
+                    ("--pod-namespace", "podNameSpace"),
+                    ("--external-ip", "externalIp"),
+                    ("--svc-port-name", "servicePortName"),
+                    ("--cluster-uuid", "clusterUUID")):
+                if spec.get(key):
+                    args += [flag, str(spec[key])]
+            if spec.get("refitEvery") is not None:
+                args += ["--refit-every", str(int(spec["refitEvery"]))]
+        elif record.kind == KIND_DD:
+            args += ["dropdetection",
+                     "-t", str(spec.get("jobType", "initial"))]
+            if spec.get("clusterUUID"):
+                args += ["--cluster-uuid", str(spec["clusterUUID"])]
+        elif record.kind == KIND_FPM:
+            args += ["patterns",
+                     "-m", str(int(spec.get("minSupport", 0) or 0)),
+                     "--max-len", str(_validate_max_len(spec))]
+            if spec.get("columns"):
+                args += ["-c", ",".join(spec["columns"])]
+        elif record.kind == KIND_SPATIAL:
+            args += ["spatial"]
+            if spec.get("eps"):
+                args += ["--eps", str(float(spec["eps"]))]
+            if spec.get("minSamples"):
+                args += ["--min-samples", str(int(spec["minSamples"]))]
+        else:
+            policy_type = validate_policy_type(
+                str(spec.get("policyType", "anp-deny-applied")))
+            option = POLICY_TYPE_OPTION[policy_type]
+            args += ["npr",
+                     "-t", str(spec.get("jobType", "initial")),
+                     "-l", str(int(spec.get("limit", 0) or 0)),
+                     "-o", str(option),
+                     "--rm_labels",
+                     "true" if spec.get("excludeLabels", True)
+                     else "false",
+                     "--to_services",
+                     "true" if spec.get("toServices", True)
+                     else "false"]
+            if spec.get("nsAllowList"):
+                args += ["-n", json.dumps(spec["nsAllowList"])]
+        if spec.get("startInterval"):
+            args += ["-s", self._fmt_time(spec["startInterval"])]
+        if spec.get("endInterval"):
+            args += ["-e", self._fmt_time(spec["endInterval"])]
+        args += ["-i", record.job_id]
+        return args
+
+    def _runner_cmd(self, record: JobRecord, snap: str,
+                    progress_file: str) -> List[str]:
+        """Full child argv. Split out so tests can substitute a
+        controllable child process. The child runs on the controller's
+        device, named on its command line."""
+        return ([sys.executable, "-m", "theia_tpu_torch.runner"]
+                + self._runner_args(record)
+                + ["--db", snap, "--progress-file", progress_file,
+                   "--out", snap + ".results.npz",
+                   "--device", str(self.device)])
+
     def _deleted(self, record: JobRecord) -> bool:
         """True when THIS record left the table — identity, not name:
         a same-named recreation must not keep a doomed child alive
         (or let a deleted one's results land)."""
         with self._lock:
             return self._records.get(record.name) is not record
+
+    def _run_subprocess(self, record: JobRecord) -> None:
+        """One job = one runner child over a database snapshot; the
+        process boundary is the failure domain (reference Spark
+        driver/executor isolation)."""
+        stages = _STAGES[record.kind]
+        workdir = tempfile.mkdtemp(
+            prefix=f"theia-job-{record.job_id[:8]}-")
+        try:
+            snap = os.path.join(workdir, "db.npz")
+            progress_file = os.path.join(workdir, "progress.json")
+            # argv build doubles as spec validation — errors raise here,
+            # before the snapshot/spawn costs.
+            cmd = self._runner_cmd(record, snap, progress_file)
+            record.progress = FileProgress(record.job_id, stages,
+                                           progress_file)
+            pkg_root = os.path.dirname(os.path.dirname(
+                os.path.dirname(os.path.abspath(__file__))))
+            env = {**os.environ,
+                   "PYTHONPATH": pkg_root + os.pathsep +
+                   os.environ.get("PYTHONPATH", "")}
+            # Snapshot outside the device lock (table scans are
+            # thread-safe): only the child's device tenure serializes.
+            # Uncompressed — a short-lived handoff file, not a durable
+            # checkpoint.
+            self.db.save(snap, compress=False)
+            # Child output goes to files, not PIPEs: an undrained pipe
+            # fills at ~64 KiB and deadlocks a chatty child against
+            # our wait() loop.
+            err_path = os.path.join(workdir, "stderr.log")
+            _fire_fault("runner.spawn", job=record.name)
+            deadline_s = record.deadline_seconds
+            deadline_hit = False
+            with open(os.path.join(workdir, "stdout.log"), "wb") as out_f, \
+                    open(err_path, "wb") as err_f, \
+                    self._device_lock:
+                t_spawn = time.monotonic()
+                proc = subprocess.Popen(
+                    cmd, stdout=out_f, stderr=err_f, env=env,
+                    cwd=workdir)
+                record.runner_pid = proc.pid
+                try:
+                    while True:
+                        try:
+                            proc.wait(timeout=0.2)
+                            break
+                        except subprocess.TimeoutExpired:
+                            if self._deleted(record):  # delete cancels
+                                proc.kill()
+                            elif self._stop.is_set():
+                                # controller shutdown must not orphan
+                                # a running child (it would keep the
+                                # accelerator claimed past the
+                                # manager's death)
+                                proc.kill()
+                            elif (deadline_s and not deadline_hit
+                                  and time.monotonic() - t_spawn
+                                  > deadline_s):
+                                # a hung child would otherwise hold
+                                # this worker AND the device lock
+                                # forever (the Spark Operator's
+                                # activeDeadlineSeconds kill)
+                                deadline_hit = True
+                                proc.kill()
+                except BaseException:
+                    proc.kill()
+                    proc.wait()
+                    raise
+            # final scrape before the scratch dir goes away
+            record.progress.snapshot()
+            try:
+                # keep the child's stderr tail on the record — the
+                # support bundle's runner-log source (the reference
+                # dumper copies Spark driver/executor pod logs,
+                # pkg/support/dump.go:55-66)
+                with open(err_path, "rb") as f:
+                    record.runner_log_tail = f.read()[-8192:].decode(
+                        errors="replace")
+            except OSError:
+                pass
+            if deadline_hit:
+                _M_DEADLINE_KILLS.inc()
+                raise DeadlineExceeded(
+                    f"runner exceeded deadlineSeconds={deadline_s:g} "
+                    f"and was killed")
+            if proc.returncode != 0:
+                tail = " | ".join(record.runner_log_tail
+                                  .strip().splitlines()[-5:])
+                suffix = f": {tail}" if tail else ""
+                if proc.returncode < 0:
+                    # signal deaths (OOM kill, node reaper) are the
+                    # transient class the reference's Spark Operator
+                    # restartPolicy retries
+                    raise TransientJobError(
+                        f"runner killed by signal {-proc.returncode}"
+                        + suffix)
+                if proc.returncode == TRANSIENT_EXIT_CODE:
+                    raise TransientJobError(
+                        f"runner transient failure (exit "
+                        f"{TRANSIENT_EXIT_CODE})" + suffix)
+                raise RuntimeError(
+                    f"runner exited {proc.returncode}" + suffix)
+            self._merge_results(record, snap + ".results.npz")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+
+    def _merge_results(self, record: JobRecord, results: str) -> None:
+        """Copy the job's result rows from the runner's results-only
+        snapshot into the live database (dictionary re-encode happens
+        in Table insert adoption)."""
+        try:
+            out = FlowDatabase.load(results, build_views=False)
+        except FileNotFoundError:
+            # Contract violation (rc=0 but no results file) — only
+            # reachable with a substituted child; don't fail the job,
+            # just record it.
+            logger.error("job %s: runner wrote no results file %s",
+                         record.name, results)
+            return
+        table_name = _RESULT_TABLE[record.kind]
+        src = out.result_tables[table_name]
+        dst = self.db.result_tables[table_name]
+        data = src.scan()
+        if len(data):
+            rows = data.filter(data.strings("id") == record.job_id)
+            if len(rows):
+                dst.insert(rows)
 
     def health(self) -> Dict[str, object]:
         """Operator health view (served by GET /healthz): queue depth

@@ -1,6 +1,5 @@
-"""The job runner's shared piece: progress reporting (progress.py).
-The runner itself, the controller's subprocess dispatch, is not ported
-yet: ROADMAP A17."""
+"""The job runner (`python -m theia_tpu_torch.runner`, the Spark-job CLI
+contract) and its progress reporting."""
 
 from .progress import NPR_STAGES, TAD_STAGES, JobProgress
 
