@@ -28,7 +28,12 @@ on the card:
     theia_tpu_torch.runner` child with its own CUDA context on the
     same card (the DBSCAN child launches B2), a SIGKILLed child
     retried, a child killed at its deadline, and /ingest (B1) after
-    both.
+    both;
+  * the scale-out tiers: the jobs sharded over a mesh of logical
+    shards of the card (parallel/: B2 once a shard), against their
+    one-device runs, and the cluster tier — three `python -m
+    theia_tpu_torch.manager` processes as a leader/follower quorum
+    through a leader failover, then three as a routing mesh.
 
 Each phase prints one JSON line; any failure raises and the script
 exits non-zero. The last line of standard output is
@@ -49,10 +54,15 @@ manager the NPR, FPM, SAD and DD jobs (manager_jobs) each held against
 the port on the CPU (jobs_parity), then the same jobs under subprocess
 dispatch over the store they left (manager_subprocess: rows against
 the thread-dispatch rows, dispatch overhead, nvidia-smi, the SIGKILL
-and deadline drills, /ingest and DBSCAN after them), a SIGKILL and
-restart of `python -m theia_tpu_torch.manager` on its WAL, and the
-working-set state tier against an unbounded run; then the kernels
-line, the card's name and power limit, and the result line.
+and deadline drills, /ingest and DBSCAN after them; its SAD jobs over
+a 262,144-flow window), a SIGKILL and restart of `python -m
+theia_tpu_torch.manager` on its WAL, the cluster tier (cluster: the
+quorum failover drill with zero acked rows lost, the routing mesh's
+per-node rows and scatter-gather query), and the working-set state
+tier against an unbounded run; the jobs over a mesh (multi_device)
+run right after jobs_parity, over the same flows and SAD points; then
+the kernels line, the card's name and power limit, and the result
+line.
 Imports nothing of JAX and nothing of the JAX package. Writes under
 the package's _build/ directories and, for the managers' WALs and
 parts, in temporary directories it removes.
@@ -130,8 +140,13 @@ TAD_STD_RTOL = {"float64": 2e-15, "float32": 1e-6}
 TAD_CALC_RTOL = {"EWMA": 0.0, "DBSCAN": 0.0, "ARIMA": 1e-9}
 
 
+#: the script's start, for each phase line's `at_s`
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def card_name_and_limit() -> str:
@@ -1155,8 +1170,8 @@ CHILD_READY_S = 300.0
 TAD_JOB_TIMEOUT_S = 600.0
 #: the working-set drill: bench.py's working-set mix (every key once
 #: in random order, then half as many Zipf(1.3) re-arrivals, values
-#: uniform in [0, 1e3)) at twice the hot slots of every shard
-TIER_KEYS = 2 * N_SHARDS * CAPACITY
+#: uniform in [0, 1e3)) at 1.25 times the hot slots of every shard
+TIER_KEYS = 5 * N_SHARDS * CAPACITY // 4
 TIER_ZIPF = 1.3
 #: the mix's one addition: this share of points 50x, so that the
 #: alert multisets compared are not empty
@@ -1750,7 +1765,7 @@ def tier_run(keys, vals, device, capacity=None) -> dict:
 
 def phase_state_tier(device) -> dict:
     """THEIA_STATE_TIER on, at full width (8 shards of 65,536 slots)
-    with four times as many connections as slots; against an unbounded
+    with 1.25 times as many connections as slots; against an unbounded
     run (every connection its own slot) on the same card."""
     keys, vals = tier_stream(seed=7)
     with environ(THEIA_STATE_TIER="1"):
@@ -2329,14 +2344,25 @@ def check_jobs_parity(got: dict) -> None:
 #: flows the thread-dispatch jobs of manager_jobs read; DD reads the
 #: whole store, as its thread-dispatch job did.
 SUB_WINDOW = {"endInterval": DD_DAY0 * 86400}
+#: the SAD jobs of the phase (and its SIGKILL and deadline drills) read
+#: the first 68 points of each TAD series: 557,056 flows, whose rows
+#: are held against the port on the card in this process over the same
+#: window (the thread-dispatch job read all 1,048,576). The TAD flows
+#: start at the synthetic generator's DEFAULT_START (2021-01-01), one
+#: point a second; its spikes, the flows SAD calls noise, sit in the
+#: second half of each series, so a window of the first quarter would
+#: hold no noise flow at all, and 68 points hold about one in sixteen.
+SUB_SAD_POINTS = TAD_POINTS // 2 + 4
+SUB_SAD_END = 1_609_459_200 + SUB_SAD_POINTS
 SUB_JOBS = (
     ("tad-EWMA", "throughputanomalydetectors", "tad",
      {"jobType": "EWMA", **SUB_WINDOW}),
     ("tad-DBSCAN", "throughputanomalydetectors", "tad",
      {"jobType": "DBSCAN", **SUB_WINDOW}),
     *((kind, JOB_KINDS[kind][0], JOB_KINDS[kind][1],
-       {**JOB_KINDS[kind][2], **SUB_WINDOW}) for kind in ("npr", "fpm",
-                                                          "sad")),
+       {**JOB_KINDS[kind][2], **SUB_WINDOW}) for kind in ("npr", "fpm")),
+    ("sad", JOB_KINDS["sad"][0], JOB_KINDS["sad"][1],
+     {**JOB_KINDS["sad"][2], "endInterval": SUB_SAD_END}),
     ("dd", JOB_KINDS["dd"][0], JOB_KINDS["dd"][1], JOB_KINDS["dd"][2]),
 )
 #: the deadline drill's SAD deadline, and its memory check: the card's
@@ -2571,6 +2597,26 @@ class CardWatch:
                 "min_free_during": self.min_free}
 
 
+def sad_window(db, device) -> tuple:
+    """The SAD rows of the phase's window (the flows before
+    SUB_SAD_END) computed in this process on `device`, as job_rows
+    gives them from the API's rows (every value a string); the
+    window's points and flags (sad_differ's recount); and the seconds
+    it took."""
+    from theia_tpu_torch.analytics import spatial
+    from theia_tpu_torch.data.synth import DEFAULT_START
+    assert SUB_SAD_END == DEFAULT_START + SUB_SAD_POINTS
+    flows = db.flows.select(None, SUB_SAD_END)
+    t0 = time.perf_counter()
+    with DeviceCall("theia_tpu_torch.analytics.spatial",
+                    "dbscan_points_noise", profile=False,
+                    keep=True) as call:
+        rows = spatial.spatial_outliers(flows, device=device)
+    seconds = time.perf_counter() - t0
+    rows = [{k: str(v) for k, v in r.items()} for r in rows]
+    return job_rows("sad", {"stats": rows}), call.kept[0], seconds
+
+
 def sub_job(label: str, doc: dict, record, clock: dict,
             thread_s: float) -> dict:
     """One subprocess job's times: the job (status endTime −
@@ -2632,6 +2678,9 @@ def phase_manager_subprocess(snapshot: str, kept: dict, thread: dict,
         out: dict = {"store_rows": total_rows(port), "jobs": {},
                      "rows": {}}
         docs: dict = {}
+        sad_want, sad_kept, sad_s = sad_window(ctl.db, device)
+        out["sad_window"] = {"flows": len(sad_kept[0]),
+                             "noise": len(sad_want), "in_process_s": sad_s}
         with DispatchClock(ctl) as clock:
             # (1) and (2): one job of each kind
             for label, resource, prefix, spec in SUB_JOBS:
@@ -2642,13 +2691,14 @@ def phase_manager_subprocess(snapshot: str, kept: dict, thread: dict,
                     docs[label] = run_api_job(
                         port, resource, {"metadata": {"name": name}, **spec})
                 record = ctl.get(name)
-                out["jobs"][label] = sub_job(label, docs[label], record,
-                                             clock.take(), thread[label])
+                out["jobs"][label] = sub_job(
+                    label, docs[label], record, clock.take(),
+                    sad_s if label == "sad" else thread[label])
                 got = job_rows(label, docs[label])
-                want = job_rows(label, kept[label])
                 out["rows"][label] = (
-                    sad_differ(got, want, ctl.db, kept["sad-points"])
-                    if label == "sad" else compare_rows(label, got, want))
+                    sad_differ(got, sad_want, ctl.db, sad_kept)
+                    if label == "sad" else
+                    compare_rows(label, got, job_rows(label, kept[label])))
                 if watch is not None:
                     out["sad_on_card"] = watch.doc(record.runner_pid,
                                                    free0)
@@ -2805,6 +2855,544 @@ def check_manager_subprocess(got: dict, device) -> None:
         raise AssertionError(f"the manager after the drills: {after}")
 
 
+# -- the scale-out slice: jobs over several devices ---------------------
+
+#: the multi_device phase: logical shards of one card (a mesh that
+#: lists the card MD_SHARDS times), the explicitly time-sharded EWMA
+#: batch (series, points), and that EWMA's tolerance against the
+#: one-device scan (float64; tests/test_torch_parallel.py TIME_RTOL)
+MD_SHARDS = 4
+MD_LONG = (256, 16384)
+MD_TIME_RTOL = 1e-12
+#: a flag of the time-sharded EWMA may differ from the one-device
+#: scan's only where |x - ewma| lies this close (relative) to stddev
+MD_FLAG_BAND = 1e-9
+
+
+def md_run(run, devices) -> tuple:
+    """`run()` with B2's count set to 0 just before it and read just
+    after, and each CUDA device's peak allocated bytes reset before it
+    and read after (the shards of a logical mesh share one card, so
+    its peak is theirs together): (its result, {seconds, span_ms —
+    CUDA events around the call on the first card, so the span ends
+    with the call's last kernel —, b2_launches, peak_allocated})."""
+    import torch
+    from theia_tpu_torch.ops import dbscan
+    cards = sorted({torch.device(d) for d in devices
+                    if torch.device(d).type == "cuda"}, key=str)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    events = None
+    if cards:
+        with torch.cuda.device(cards[0]):
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+    dbscan.launches = 0
+    t0 = time.perf_counter()
+    result = run()
+    launches = dbscan.launches
+    if events is not None:
+        with torch.cuda.device(cards[0]):
+            events[1].record()
+        for d in cards:
+            torch.cuda.synchronize(d)
+    return result, {
+        "seconds": time.perf_counter() - t0,
+        "span_ms": None if events is None
+        else events[0].elapsed_time(events[1]),
+        "b2_launches": launches,
+        "peak_allocated": {str(d): torch.cuda.max_memory_allocated(d)
+                           for d in cards}}
+
+
+def id_rows(db, table: str, job_id: str) -> list:
+    """A job's result rows without their id, as sorted tuples."""
+    return sorted(tuple(sorted((k, v) for k, v in r.items() if k != "id"))
+                  for r in table_rows(db, table, job_id))
+
+
+def md_tad(db, mesh, device, label: str) -> dict:
+    """run_tad for EWMA, ARIMA and DBSCAN over `mesh` and with
+    mesh=None on `device`: each run's numbers (with the device span of
+    its scoring step, score_series, on a card), and whether its rows
+    equal."""
+    from theia_tpu_torch.analytics import TadQuerySpec, run_tad
+    devices = list(mesh.devices.flat)
+    out = {}
+    for algo in TAD_ALGOS:
+        runs = {}
+        for side, m in (("sharded", mesh), ("one_device", None)):
+            tad_id = f"md-{label}-{side}-{algo}"
+            with (ScoreTimer() if device.type == "cuda"
+                  else contextlib.nullcontext()) as timer:
+                _, runs[side] = md_run(
+                    lambda: run_tad(db, algo, TadQuerySpec(),
+                                    tad_id=tad_id, now=0, mesh=m,
+                                    device=device),
+                    devices if m is not None else [device])
+            runs[side]["score_device_ms"] = getattr(timer, "device_ms",
+                                                    None)
+            runs[side]["rows"] = id_rows(db, "tadetector", tad_id)
+        sh, one = runs["sharded"].pop("rows"), runs["one_device"].pop("rows")
+        out[algo] = {**runs, "rows": len(one), "rows_equal": sh == one,
+                     "anomalies": sum(dict(r)["anomaly"] == "true"
+                                      for r in one)}
+    return out
+
+
+def phase_multi_device(flows, sad_points, sad_noise, device,
+                       shards: int = MD_SHARDS, long_shape=MD_LONG,
+                       fpm_support: int = JOB_KINDS["fpm"][2][
+                           "minSupport"]) -> dict:
+    """The port's counterpart of `__graft_entry__.dryrun_multichip`: the
+    jobs' sharded paths (parallel/) on a mesh that lists `device`
+    `shards` times (logical shards), against their one-device paths.
+
+    job_mesh() on this host (None on one card); run_tad EWMA, ARIMA and
+    DBSCAN over the TAD flows with rows equal to mesh=None (B2 once a
+    shard for DBSCAN); the time-sharded EWMA over a long-series batch
+    within MD_TIME_RTOL, and score_series' automatic time sharding;
+    run_npr and pattern mining over the same flows, sharded against
+    one device, rows equal; the sharded SAD passes over the points
+    manager_jobs' SAD job scored, against that job's flags (a flag may
+    differ only in the float32 eps band, recounted in float64). Where
+    the host has more than one card, run_tad again over a mesh of the
+    real cards."""
+    import datetime
+    import numpy as np
+    import torch
+    from theia_tpu_torch import parallel
+    from theia_tpu_torch.analytics import run_npr, run_pattern_mining
+    from theia_tpu_torch.analytics.tad import LONG_SERIES_T, score_series
+    from theia_tpu_torch.ops.ewma import ewma_scores
+    from theia_tpu_torch.store import FlowDatabase
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count() if device.type == "cuda" else 0
+    parallel.reset_cache()
+    auto = parallel.job_mesh()
+    out: dict = {"device_count": count, "shards": shards,
+                 "job_mesh": None if auto is None else auto.size}
+    if count <= 1 and auto is not None:
+        raise AssertionError(f"job_mesh() on a {count}-card host: {auto}")
+    mesh = parallel.make_mesh(devices=[device] * shards)
+    out["mesh"] = [str(d) for d in mesh.devices.flat]
+
+    t0 = time.perf_counter()
+    db = FlowDatabase()
+    db.insert_flows(flows)
+    out["store_s"] = time.perf_counter() - t0
+    out["tad_rows_in"] = len(flows)
+    out["tad"] = md_tad(db, mesh, device, "logical")
+
+    # the long-series batch: an explicitly time-sharded mesh, and the
+    # automatic re-mesh of a batch with fewer series than shards
+    rng = np.random.default_rng(23)
+    s, t = long_shape
+    x = rng.uniform(1e5, 1e7, size=(s, t))
+    x[:, ::997] *= 50.0
+    mask = np.ones((s, t), bool)
+    mask[s // 3, t // 2:] = False
+    tmesh = parallel.make_mesh(devices=[device] * shards,
+                               time_shards=shards)
+    (e, std, anom, n_anom), sharded = md_run(
+        lambda: parallel.make_sharded_ewma(tmesh)(
+            *parallel.shard_arrays(tmesh, x, mask)), [device])
+    (e1, std1, anom1), one = md_run(
+        lambda: ewma_scores(torch.from_numpy(x).to(device),
+                            torch.from_numpy(mask).to(device)), [device])
+    xz = torch.from_numpy(np.where(mask, x, 0.0)).to(device)
+    band = ((xz - e1).abs() - std1[:, None]).abs() \
+        <= MD_FLAG_BAND * std1[:, None]
+    differ = anom != anom1
+    out["ewma_time"] = {
+        "shape": [s, t], "time_shards": shards, "sharded": sharded,
+        "one_device": one,
+        "ewma_max_rel": max_rel(e.cpu().numpy().ravel(),
+                                e1.cpu().numpy().ravel()),
+        "std_max_rel": max_rel(std.cpu().numpy(), std1.cpu().numpy()),
+        "anomalies": int(anom1.sum()), "count": int(n_anom),
+        "flags_differ": int(differ.sum()),
+        "flags_differ_outside_band": int((differ & ~band).sum())}
+    xa, ma = x[:3, :LONG_SERIES_T], mask[:3, :LONG_SERIES_T]
+    c_sh, s_sh, a_sh = score_series(xa, ma, "EWMA", mesh=mesh)
+    c_lo, s_lo, a_lo = score_series(xa, ma, "EWMA", device=device)
+    out["ewma_time_auto"] = {
+        "shape": list(xa.shape), "ewma_max_rel": max_rel(c_sh.ravel(),
+                                                         c_lo.ravel()),
+        "std_max_rel": max_rel(s_sh, s_lo),
+        "flags_differ": int((a_sh != a_lo).sum())}
+
+    # NPR and pattern mining over the same flows
+    epoch = datetime.datetime.fromtimestamp(0, datetime.timezone.utc)
+    for kind, table, run in (
+            ("npr", "recommendations",
+             lambda jid, m: run_npr(db, recommendation_id=jid, now=epoch,
+                                    mesh=m, device=device)),
+            ("fpm", "flowpatterns",
+             lambda jid, m: run_pattern_mining(
+                 db, min_support=fpm_support, mining_id=jid, now=0,
+                 mesh=m, device=device))):
+        runs = {}
+        for side, m in (("sharded", mesh), ("one_device", None)):
+            jid = f"md-{side}-{kind}"
+            _, runs[side] = md_run(lambda: run(jid, m), [device])
+            runs[side]["rows"] = id_rows(db, table, jid)
+        sh, one = runs["sharded"].pop("rows"), runs["one_device"].pop("rows")
+        out[kind] = {**runs, "rows": len(one), "rows_equal": sh == one}
+
+    # SAD: the manager job's points, sharded
+    n = len(sad_points)
+    pad = -n % shards
+    pts = torch.cat([sad_points, sad_points.new_zeros((pad,
+                                                        sad_points.shape[1]))])
+    valid = torch.arange(n + pad, device=pts.device) < n
+    noise, sharded = md_run(
+        lambda: parallel.make_sharded_points_dbscan(
+            mesh, eps=1.0, min_samples=4)(pts, valid)[:n], [device])
+    differ = (noise.cpu() != sad_noise.cpu()).nonzero()[:, 0]
+    amb = torch.zeros(len(differ), dtype=torch.bool)
+    if len(differ):
+        _, amb = points_recount(sad_points, differ.to(sad_points.device),
+                                1.0, 4)
+    out["sad"] = {"flows": n, "sharded": sharded,
+                  "noise": int(noise.sum()),
+                  "noise_job": int(sad_noise.sum()),
+                  "differ": len(differ),
+                  "differ_outside_band": int((~amb).sum())}
+
+    if count > 1:
+        cards = parallel.make_mesh(devices=[torch.device("cuda", i)
+                                            for i in range(count)])
+        out["cards"] = {"mesh": [str(d) for d in cards.devices.flat],
+                        "tad": md_tad(db, cards, device, "cards")}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def check_multi_device(got: dict, device) -> None:
+    for key in ("tad",) + (("cards",) if "cards" in got else ()):
+        tad = got[key] if key == "tad" else got[key]["tad"]
+        for algo, r in tad.items():
+            if not (r["rows_equal"] and r["rows"]):
+                raise AssertionError(f"{key} {algo} sharded rows differ "
+                                     f"from one device: {r}")
+    dbscan = got["tad"]["DBSCAN"]
+    if device.type == "cuda" and (
+            dbscan["sharded"]["b2_launches"] != got["shards"]
+            or dbscan["one_device"]["b2_launches"] != 1):
+        raise AssertionError(f"B2 launches, {got['shards']} shards: "
+                             f"{dbscan}")
+    ew = got["ewma_time"]
+    if ew["ewma_max_rel"] > MD_TIME_RTOL or ew["std_max_rel"] > \
+            MD_TIME_RTOL or ew["flags_differ_outside_band"]:
+        raise AssertionError(f"time-sharded EWMA: {ew}")
+    auto = got["ewma_time_auto"]
+    if auto["ewma_max_rel"] > MD_TIME_RTOL or auto["std_max_rel"] > \
+            MD_TIME_RTOL or auto["flags_differ"]:
+        raise AssertionError(f"automatic time sharding: {auto}")
+    for kind in ("npr", "fpm"):
+        if not (got[kind]["rows_equal"] and got[kind]["rows"]):
+            raise AssertionError(f"{kind} sharded vs one device: "
+                                 f"{got[kind]}")
+    if got["sad"]["differ_outside_band"] or not got["sad"]["noise"]:
+        raise AssertionError(f"SAD sharded vs the job: {got['sad']}")
+
+
+# -- the scale-out slice: the cluster tier ------------------------------
+
+#: the cluster phase: blocks a topology (16,384 rows each), heartbeat
+#: period, and the routing mesh's group-by (every group returned)
+CLUSTER_BLOCKS = 8
+CLUSTER_HEARTBEAT_S = "0.2"
+CLUSTER_QUERY = {"groupBy": "sourcePodNamespace",
+                 "aggregates": ["count", "sum:octetDeltaCount"],
+                 "k": 1000}
+CLUSTER_CONVERGE_S = 120.0
+
+
+class ClusterNodes:
+    """Manager child processes of one cluster, each `python -m
+    theia_tpu_torch.manager --device D --peers P --node-id nI --role R`
+    with the same peer list, its own WAL directory (THEIA_WAL_SYNC
+    always) and its own log in `tmp`; the fused engine pinned, so
+    /healthz names the device the node scores on. `stop()` ends every
+    child still running: SIGTERM, then SIGKILL by its exact pid."""
+
+    def __init__(self, tmp: str, device, n: int, name: str):
+        self.tmp, self.device, self.name = tmp, device, name
+        self.ports = [free_port() for _ in range(n)]
+        self.peers = ",".join(f"n{i}=http://127.0.0.1:{p}"
+                              for i, p in enumerate(self.ports))
+        self.procs: dict = {}
+        self.logs: list = []
+
+    def start(self, i: int, role: str) -> None:
+        log = open(os.path.join(self.tmp, f"{self.name}-n{i}-"
+                                f"{len(self.logs)}.log"), "wb")
+        self.logs.append(log)
+        env = {**os.environ, "THEIA_WAL_SYNC": "always",
+               "THEIA_DETECTOR_ENGINE": "fused",
+               "THEIA_CLUSTER_HEARTBEAT": CLUSTER_HEARTBEAT_S,
+               "THEIA_CLUSTER_BOUNDS_INTERVAL": "0.1",
+               "THEIA_RETENTION_INTERVAL": "0"}
+        env.pop("THEIA_CLUSTER_PEERS", None)
+        self.procs[i] = subprocess.Popen(
+            [sys.executable, "-m", "theia_tpu_torch.manager",
+             "--device", str(self.device), "--port", str(self.ports[i]),
+             "--peers", self.peers, "--node-id", f"n{i}", "--role", role,
+             "--repl-acks", "quorum", "--ingest-shards", "1",
+             "--wal-dir", os.path.join(self.tmp, f"{self.name}-w{i}")],
+            env=env, stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def ready(self, nodes) -> float:
+        t0 = time.perf_counter()
+        for i in nodes:
+            proc = self.procs[i]
+            wait_ready(self.ports[i], lambda p=proc: p.poll() is not None,
+                       CHILD_READY_S)
+        return time.perf_counter() - t0
+
+    def url(self, i: int) -> str:
+        return f"http://127.0.0.1:{self.ports[i]}"
+
+    def kill(self, i: int) -> int:
+        proc = self.procs.pop(i)
+        proc.send_signal(signal.SIGKILL)
+        return proc.wait(timeout=60)
+
+    def node_doc(self, i: int) -> dict:
+        """The node's role, applied LSN, rows, and the device and fused
+        steps of its engine (each fused step is one grouped B1 launch
+        on a card)."""
+        health = http_json(self.ports[i], "/healthz")
+        ping = http_json(self.ports[i], "/cluster/ping")
+        engine = health["ingest"]["engine"]
+        return {"role": ping["role"], "appliedLsn": ping["appliedLsn"],
+                "rows": total_rows(self.ports[i]),
+                "device": engine.get("device"),
+                "fused_steps": engine.get("steps")}
+
+    def stop(self) -> dict:
+        rcs = {}
+        for i, proc in self.procs.items():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for i, proc in self.procs.items():
+            try:
+                rcs[f"n{i}"] = proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rcs[f"n{i}"] = proc.wait(timeout=60)
+        self.procs.clear()
+        for log in self.logs:
+            log.close()
+        return rcs
+
+    def tails(self) -> str:
+        out = []
+        for log in self.logs:
+            with open(log.name, "rb") as f:
+                out.append(f"== {os.path.basename(log.name)}\n"
+                           + f.read()[-1500:].decode(errors="replace"))
+        return "\n".join(out)
+
+
+def wait_for(cond, timeout: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if cond():
+            return time.perf_counter() - t0
+        time.sleep(0.1)
+    raise TimeoutError(f"timed out after {timeout:.0f}s waiting for "
+                       f"{what}")
+
+
+def partial_answer(port: int, plan: dict) -> dict:
+    """One node's own answer to `plan` over its local store (its half
+    of a scatter-gather, POST /query/partial): {group key: (count,
+    sum)}."""
+    import urllib.request
+    from theia_tpu_torch.query import parse_plan
+    from theia_tpu_torch.query.distributed import (partial_from_batch,
+                                                   unpack_partial)
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/query/partial", method="POST",
+        data=json.dumps({"plan": plan}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        _meta, batch = unpack_partial(r.read())
+    keys, aggs = partial_from_batch(parse_plan(plan), batch)
+    if keys is None:
+        return {}
+    return {str(k): (int(c), int(s)) for k, c, s in zip(
+        keys[0], aggs["count"], aggs["sum(octetDeltaCount)"])}
+
+
+def phase_cluster(blocks, device, n_blocks: int = CLUSTER_BLOCKS) -> dict:
+    """The cluster tier through `python -m theia_tpu_torch.manager`
+    processes on `device`.
+
+    Leader/follower quorum: n0 leader, n1 and n2 followers, `--repl-acks
+    quorum`; an IngestClient with all three endpoints sends `n_blocks`
+    seq-stamped TBLK blocks; the leader is SIGKILLed by its pid, the
+    most advanced follower promoted at its applied LSN; the last seq,
+    re-sent, answers duplicate; the new leader holds every acked row
+    (zero acked loss) and scores a block more; the old leader, restarted
+    as a follower, converges to the new leader's LSN. Routing mesh:
+    three `--role peer` managers; routed ingest of the next `n_blocks`
+    blocks spreads rows whose per-node counts sum to the acked rows; a
+    /query group-by from every node answers `engine: cluster`, equal to
+    the sum of the nodes' own answers."""
+    import tempfile
+    from theia_tpu_torch.ingest.client import IngestClient
+    out: dict = {"blocks": n_blocks}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="theia-cluster-") as tmp:
+        # both topologies start together: six processes come up in
+        # about the time of three
+        q = ClusterNodes(tmp, device, 3, "quorum")
+        m = ClusterNodes(tmp, device, 3, "mesh")
+        try:
+            for i, role in enumerate(("leader", "follower", "follower")):
+                q.start(i, role)
+                m.start(i, "peer")
+            quorum = {"start_s": q.ready(range(3))}
+            mesh = {"start_s": m.ready(range(3))}
+            client = IngestClient([q.url(i) for i in range(3)],
+                                  stream="cluster", timeout=120.0,
+                                  max_attempts=20, backoff_base=0.05,
+                                  backoff_cap=0.5)
+            t0 = time.perf_counter()
+            acks = [client.send(b, seq=s + 1)
+                    for s, b in enumerate(blocks[:n_blocks])]
+            quorum["ingest_s"] = time.perf_counter() - t0
+            acked = sum(a["rows"] for a in acks)
+            quorum["acked"] = acked
+            quorum["before_kill"] = {f"n{i}": q.node_doc(i)
+                                     for i in range(3)}
+            quorum["killed_rc"] = q.kill(0)
+            lsns = {i: http_json(q.ports[i], "/cluster/ping")[
+                "appliedLsn"] for i in (1, 2)}
+            best = max(lsns, key=lambda i: lsns[i])
+            other = 3 - best
+            t0 = time.perf_counter()
+            quorum["promote"] = http_json(
+                q.ports[best], "/cluster/promote", "POST",
+                {"atLsn": lsns[best]})
+            retry = client.send(b"\x00", seq=n_blocks)
+            quorum["failover_s"] = time.perf_counter() - t0
+            quorum["promoted"] = f"n{best}"
+            quorum["applied_lsn_at_kill"] = {f"n{i}": v
+                                             for i, v in lsns.items()}
+            quorum["retry"] = {k: retry.get(k)
+                               for k in ("rows", "duplicate")}
+            quorum["rows_after_failover"] = total_rows(q.ports[best])
+            extra = client.send(blocks[n_blocks], seq=n_blocks + 1)
+            quorum["after_failover_acked"] = extra["rows"]
+            q.start(0, "follower")
+            quorum["old_leader_restart_s"] = q.ready([0])
+            target = acked + extra["rows"]
+            quorum["converge_s"] = wait_for(
+                lambda: all(q.node_doc(i)["rows"] == target
+                            for i in range(3))
+                and len({q.node_doc(i)["appliedLsn"]
+                         for i in range(3)}) == 1,
+                CLUSTER_CONVERGE_S, "the old leader's convergence")
+            quorum["nodes"] = {f"n{i}": q.node_doc(i) for i in range(3)}
+            quorum["other_follower"] = f"n{other}"
+        except BaseException:
+            for nodes in (q, m):
+                nodes.stop()
+                print(nodes.tails(), file=sys.stderr, flush=True)
+            raise
+        quorum["stopped_rc"] = q.stop()
+        out["quorum"] = quorum
+
+        try:
+            client = IngestClient(m.url(0), stream="routed",
+                                  timeout=120.0)
+            t0 = time.perf_counter()
+            acks = [client.send(b, seq=s + 1) for s, b in
+                    enumerate(blocks[n_blocks + 1:2 * n_blocks + 1])]
+            mesh["ingest_s"] = time.perf_counter() - t0
+            mesh["acked"] = sum(a["rows"] for a in acks)
+            mesh["forwarded"] = sum(a.get("forwardedRows", 0)
+                                    for a in acks)
+            mesh["retry_duplicate"] = client.send(
+                b"\x00", seq=len(acks)).get("duplicate")
+            nodes = {f"n{i}": m.node_doc(i) for i in range(3)}
+            mesh["nodes"] = nodes
+            parts = [partial_answer(m.ports[i], CLUSTER_QUERY)
+                     for i in range(3)]
+            summed: dict = {}
+            for part in parts:
+                for key, (c, s) in part.items():
+                    c0, s0 = summed.get(key, (0, 0))
+                    summed[key] = (c0 + c, s0 + s)
+
+            def cluster_answers() -> list:
+                return [http_json(m.ports[i], "/query", "POST",
+                                  {**CLUSTER_QUERY, "cache": False})
+                        for i in range(3)]
+
+            # every node's heartbeat carries its peers' store state
+            # within a beat or two of the ingest
+            group = CLUSTER_QUERY["groupBy"]
+            wait_for(lambda: all(
+                not a["partial"] and {str(r[group]): (
+                    int(r["count"]), int(r["sum(octetDeltaCount)"]))
+                    for r in a["rows"]} == summed
+                for a in cluster_answers()),
+                CLUSTER_CONVERGE_S, "the cluster query's answer")
+            answers = cluster_answers()
+            mesh["query"] = {
+                "engines": [a["engine"] for a in answers],
+                "groups": len(summed),
+                "count": sum(c for c, _ in summed.values()),
+                "per_node_counts": [sum(c for c, _ in p.values())
+                                    for p in parts],
+                "equal_to_node_sum": True,
+                "peers": answers[0].get("peers")}
+        except BaseException:
+            m.stop()
+            print(m.tails(), file=sys.stderr, flush=True)
+            raise
+        mesh["stopped_rc"] = m.stop()
+        out["mesh"] = mesh
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def check_cluster(got: dict, device) -> None:
+    q, m = got["quorum"], got["mesh"]
+    want_dev = str(device)
+    nodes = list(q["nodes"].values()) + list(m["nodes"].values())
+    if any(n["device"] != want_dev for n in nodes):
+        raise AssertionError(f"a cluster node not on {want_dev}: {got}")
+    target = q["acked"] + q["after_failover_acked"]
+    if not (q["acked"] == q["rows_after_failover"]
+            and q["retry"]["duplicate"] is True
+            and q["promote"]["role"] == "leader"
+            and all(n["rows"] == target for n in q["nodes"].values())
+            and len({n["appliedLsn"] for n in q["nodes"].values()}) == 1
+            and q["before_kill"]["n0"]["fused_steps"] >= 1
+            and q["nodes"][q["promoted"]]["fused_steps"] >= 1):
+        raise AssertionError(f"quorum drill: {q}")
+    if any(rc != 0 for rc in q["stopped_rc"].values()):
+        raise AssertionError(f"quorum nodes' exit codes: {q}")
+    rows = [n["rows"] for n in m["nodes"].values()]
+    if not (sum(rows) == m["acked"] and min(rows) > 0
+            and m["forwarded"] > 0 and m["retry_duplicate"] is True
+            and m["query"]["engines"] == ["cluster"] * 3
+            and m["query"]["count"] == m["acked"]
+            and all(n["fused_steps"] >= 1 for n in m["nodes"].values())
+            and all(rc == 0 for rc in m["stopped_rc"].values())):
+        raise AssertionError(f"routing mesh: {m}")
+
+
 # -- main ---------------------------------------------------------------
 
 def main() -> int:
@@ -2931,6 +3519,12 @@ def main() -> int:
         emit("jobs_parity", dd_rtol=DD_RTOL, eps_band=EPS_BAND,
              **jobs_parity)
         check_jobs_parity(jobs_parity)
+        # The scale-out slice: the same jobs sharded over a mesh of
+        # logical shards of the card, against their one-device runs.
+        multi = phase_multi_device(flows, *kept["sad-points"], device)
+        emit("multi_device", time_rtol=MD_TIME_RTOL,
+             flag_band=MD_FLAG_BAND, **multi)
+        check_multi_device(multi, device)
         del flows, tad_blocks
         # The control-plane slice: the same jobs, each in a runner
         # child, over the store the jobs above left.
@@ -2944,6 +3538,9 @@ def main() -> int:
     check_manager_subprocess(sub, device)
     emit("manager_restart",
          **phase_manager_restart(main_blocks[:RESTART_BLOCKS], device))
+    cluster = phase_cluster(main_blocks, device)
+    emit("cluster", **cluster)
+    check_cluster(cluster, device)
     tier = phase_state_tier(device)
     emit("state_tier", **tier)
 
@@ -2953,7 +3550,15 @@ def main() -> int:
         launches=manager["b1_launches"],
         launches_by_path={"main_path": main["b1_launches"],
                           "manager_path": manager["b1_launches"],
-                          "state_tier": tier["tiered"]["b1_launches"]},
+                          "state_tier": tier["tiered"]["b1_launches"],
+                          # fused steps of each cluster node (one
+                          # grouped B1 launch a step), read from its
+                          # /healthz
+                          "cluster": {
+                              f"{topo}-{node}": doc["fused_steps"]
+                              for topo in ("quorum", "mesh")
+                              for node, doc in cluster[topo][
+                                  "nodes"].items()}},
         launches_per_ingest_s=manager["b1_launches_per_s"])
     kernels[1].update(
         launches=manager_tad["jobs"]["DBSCAN"]["b2_launches"],
@@ -2963,7 +3568,10 @@ def main() -> int:
             # counted in the DBSCAN job's runner child, read from the
             # stderr line the controller kept
             "manager_subprocess": sub["jobs"]["tad-DBSCAN"][
-                "launches"].get("B2", 0)})
+                "launches"].get("B2", 0),
+            # one a shard of the sharded DBSCAN
+            "multi_device": multi["tad"]["DBSCAN"]["sharded"][
+                "b2_launches"]})
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -68,8 +68,13 @@ COPIES = (
     "obs/__init__.py",
     "schema/__init__.py",
     "runner/__init__.py",
-    # the request handlers import the cluster transport's peer header
     "cluster/transport.py",
+    "cluster/membership.py",
+    "cluster/node.py",
+    "cluster/replication.py",
+    "cluster/router.py",
+    "cluster/__init__.py",
+    "parallel/__init__.py",
     "manager/reconciler.py",
     "dashboards/__init__.py",
     "dashboards/grafana.py",
@@ -153,11 +158,7 @@ DERIVED = {
     "analysis/waivers.py": {
         "WAIVERS": "the reference's waivers at the port's paths, "
                    "invariants unchanged; left out, as the gate fails "
-                   "a waiver that matches nothing: the cluster tier's "
-                   "torn-read:cluster/node.py:ClusterNode:*, "
-                   "swallowed-except:cluster/node.py:handle_resync and "
-                   "swallowed-except:cluster/replication.py:stats "
-                   "(ROADMAP A19), the CLI's "
+                   "a waiver that matches nothing: the CLI's "
                    "swallowed-except:cli/__main__.py:_urlopen and "
                    "swallowed-except:cli/__main__.py:main (ROADMAP "
                    "A21), and swallowed-except:manager/stats.py:"
@@ -167,31 +168,46 @@ DERIVED = {
     "analytics/npr.py": {
         "read_distinct_flows": "takes device= for the port's "
                                "device_distinct",
-        "run_npr": "takes device=; mesh 'auto' or None, one device "
-                   "(the sharded DISTINCT is ROADMAP A16)",
+        "run_npr": "takes device=, resolved when no mesh runs; mesh "
+                   "'auto' is utils.device.auto_mesh (job_mesh only "
+                   "when the job runs on a card)",
     },
     "analytics/spatial.py": {
         "spatial_outliers": "the port's dbscan_points_noise on "
-                            "device=; the mesh branch left out "
-                            "(ROADMAP A16)",
-        "run_spatial": "takes device=; mesh 'auto' or None, one device "
-                       "(ROADMAP A16)",
+                            "device=, or its sharded passes over a "
+                            "mesh of torch devices (one controller)",
+        "run_spatial": "takes device=, resolved when no mesh runs; "
+                       "mesh 'auto' is utils.device.auto_mesh",
+    },
+    "parallel/engine.py": {
+        "job_mesh": "counts torch.cuda.device_count() in place of "
+                    "jax.devices(): None on one card or on the CPU",
+    },
+    "parallel/mesh.py": {
+        "shard_map": "left out: no counterpart in a single-controller "
+                     "mesh; each sharded step is written as explicit "
+                     "phases (per shard, collective, per shard), "
+                     "parallel/tad_sharded.py and the jobs' sharded "
+                     "branches",
+        "Mesh": "a grid of torch devices read as jax.sharding.Mesh "
+                "(shape, devices, size, axis_names); one device may "
+                "stand for several logical shards",
+        "Mesh.__init__": "the Mesh's fields",
+        "Mesh.__eq__": "meshes compare by axes and devices (the "
+                       "cached_kernel key)",
+        "Mesh.__hash__": "as __eq__",
+        "_grid": "the numpy grid of torch.device entries",
+        "_devices": "the visible CUDA cards in place of jax.devices()",
+        "make_mesh": "builds the torch Mesh",
+        "make_rows_mesh": "builds the torch Mesh",
+        "all_gather": "jax.lax.all_gather's counterpart: cross-device "
+                      "copies in shard order",
+        "psum": "jax.lax.psum's counterpart: partials summed in shard "
+                "order, then copied to every shard",
     },
     "analytics/drop_detection.py": {
         "run_drop_detection": "takes device=: the count matrix to the "
                               "device, the scores back with .cpu()",
-    },
-    "cluster/__init__.py": {
-        "__all__": "only the error types the request handlers map to "
-                   "HTTP codes; the tier itself is ROADMAP A19",
-        "ClusterStateError": "the reference's, from cluster/node.py "
-                             "(CLUSTER_ERRORS)",
-        "ReplicationLagError": "the reference's, from "
-                               "cluster/replication.py (CLUSTER_ERRORS)",
-        "StaleReadError": "the reference's, from cluster/replication.py "
-                          "(CLUSTER_ERRORS)",
-        "RouterForwardError": "the reference's, from cluster/router.py "
-                              "(CLUSTER_ERRORS)",
     },
     "manager/api.py": {
         "TheiaManagerServer.__init__": "takes device= for ingest, "
@@ -208,8 +224,7 @@ DERIVED = {
                                    "jax.profiler",
     },
     "manager/__main__.py": {
-        "main": "--device in place of JAX_PLATFORMS; the cluster "
-                "flags refused (ROADMAP A19)",
+        "main": "--device in place of JAX_PLATFORMS",
     },
 }
 
@@ -275,8 +290,8 @@ def _bound_name(node):
     return target.id if isinstance(target, ast.Name) else None
 
 
-#: the cluster tier's error types in the port's cluster/__init__.py →
-#: the reference module that defines each
+#: the cluster tier's error types, each with the module that defines
+#: it (the request handlers map them to HTTP codes)
 CLUSTER_ERRORS = {
     "ClusterStateError": "cluster/node.py",
     "ReplicationLagError": "cluster/replication.py",
@@ -317,8 +332,14 @@ def test_derived_module_differs_only_where_listed(rel):
 
 @pytest.mark.parametrize("name", sorted(CLUSTER_ERRORS))
 def test_cluster_error_type_matches_its_original(name):
-    ref = _units(REPO / "theia_tpu" / CLUSTER_ERRORS[name])
-    port = _units(REPO / "theia_tpu_torch" / "cluster" / "__init__.py")
+    """Each error type is the reference's class, defined where the
+    reference defines it and exported by the cluster package."""
+    import theia_tpu_torch.cluster as port_cluster
+    rel = CLUSTER_ERRORS[name]
+    ref = _units(REPO / "theia_tpu" / rel)
+    port = _units(REPO / "theia_tpu_torch" / rel)
     assert port[name] == ref[name], (
-        f"theia_tpu_torch/cluster/__init__.py::{name} drifted from "
-        f"theia_tpu/{CLUSTER_ERRORS[name]}")
+        f"theia_tpu_torch/{rel}::{name} drifted from theia_tpu/{rel}")
+    assert name in port_cluster.__all__
+    assert getattr(port_cluster, name).__module__ == \
+        "theia_tpu_torch." + rel[:-3].replace("/", ".")

@@ -21,7 +21,8 @@ PORT_FILES = sorted((REPO / "theia_tpu_torch").rglob("*.py")) + [
 #: the query layer and the control plane; from the jobs slice on, the
 #: NPR, pattern-mining, spatial and drop-detection jobs; from the
 #: control-plane slice on, the job runner, the reconciler, the
-#: dashboards and the static analysis passes
+#: dashboards and the static analysis passes; from the scale-out slice
+#: on, the multi-device job paths and the cluster tier
 SLICE_MODULES = (
     "theia_tpu_torch.ops.fused_detector",
     "theia_tpu_torch.ops.dbscan",
@@ -55,6 +56,14 @@ SLICE_MODULES = (
     "theia_tpu_torch.dashboards.web",
     "theia_tpu_torch.analysis.lockgraph",
     "theia_tpu_torch.analysis.__main__",
+    "theia_tpu_torch.parallel",
+    "theia_tpu_torch.parallel.mesh",
+    "theia_tpu_torch.parallel.engine",
+    "theia_tpu_torch.parallel.tad_sharded",
+    "theia_tpu_torch.cluster.membership",
+    "theia_tpu_torch.cluster.node",
+    "theia_tpu_torch.cluster.replication",
+    "theia_tpu_torch.cluster.router",
 )
 
 _PROBE = """

@@ -132,11 +132,25 @@ def test_run_pattern_mining_matches_reference(min_support):
     assert want and _patterns(port_db) == want
 
 
-def test_explicit_mesh_raises_naming_a16():
-    batch = ColumnarBatch.from_rows(_rows(1, 8), FLOW_SCHEMA)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        port_its.mine_frequent_patterns(batch, 2, columns=COLUMNS,
-                                        mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        port_its.run_pattern_mining(FlowDatabase(), mesh="rows",
-                                    device="cpu")
+def test_explicit_mesh_counts_equal_one_device():
+    """An explicit 8-shard CPU mesh (padding rows included: 403 rows)
+    mines the itemsets of mesh=None, and run_pattern_mining over it
+    writes the same `flowpatterns` rows."""
+    from theia_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(devices=[torch.device("cpu")] * 8)
+    batch = ColumnarBatch.from_rows(_rows(4, n=403), FLOW_SCHEMA)
+    for min_support, max_len in ((10, 3), (40, 2)):
+        got = port_its.mine_frequent_patterns(
+            batch, min_support, columns=COLUMNS, max_len=max_len,
+            mesh=mesh)
+        want = port_its.mine_frequent_patterns(
+            batch, min_support, columns=COLUMNS, max_len=max_len,
+            mesh=None, device="cpu")
+        assert want and got == want
+    cfg = SynthConfig(n_series=40, points_per_series=8, seed=12)
+    dbs = FlowDatabase(), FlowDatabase()
+    for db, mid, m in zip(dbs, ("sh", "lo"), (mesh, None)):
+        db.insert_flows(port_generate(cfg))
+        port_its.run_pattern_mining(db, min_support=7, mining_id="x",
+                                    now=5, mesh=m, device="cpu")
+    assert _patterns(dbs[0]) and _patterns(dbs[0]) == _patterns(dbs[1])

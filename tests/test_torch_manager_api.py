@@ -393,33 +393,25 @@ def test_server_whose_controller_fails_stops_its_engine():
 
 
 @pytest.mark.parametrize("how", ["argument", "environment"])
-def test_server_refuses_the_cluster_tier(how, monkeypatch):
-    """The cluster tier is not ported (ROADMAP A19): a library caller
-    that asks for it, by argument or through THEIA_CLUSTER_PEERS, is
-    refused before the server starts a thread."""
+def test_server_joins_the_cluster_tier(how, monkeypatch):
+    """A peer list, by argument or through THEIA_CLUSTER_PEERS, makes
+    the server a cluster node, as the reference's (the peer-list
+    grammar: tests/test_torch_cluster.py)."""
     peers = "n0=http://127.0.0.1:1,n1=http://127.0.0.1:2"
     kwargs = {}
     if how == "argument":
         kwargs["cluster_peers"] = peers
     else:
         monkeypatch.setenv("THEIA_CLUSTER_PEERS", peers)
-    before = {t.name for t in threading.enumerate()}
-    with pytest.raises(ValueError, match="ROADMAP A19"):
-        TheiaManagerServer(FlowDatabase(), port=0, ingest_shards=1,
-                           device="cpu", **kwargs)
-    assert {t.name for t in threading.enumerate()} <= before
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["--peers", "n0=http://127.0.0.1:1"], "ROADMAP A19"),
-    (["--role", "peer"], "ROADMAP A19"),
-])
-def test_entry_point_refuses_what_is_not_ported(argv, item, capsys):
-    from theia_tpu_torch.manager.__main__ import main
-    with pytest.raises(SystemExit) as err:
-        main(["--device", "cpu", "--port", "0", *argv])
-    assert err.value.code == 2
-    assert item in capsys.readouterr().err
+    srv = TheiaManagerServer(FlowDatabase(), port=0, ingest_shards=1,
+                             device="cpu", cluster_self="n1",
+                             cluster_role="peer", **kwargs)
+    try:
+        assert srv.cluster.cmap.self_id == "n1"
+        assert srv.cluster.role == "peer"
+        assert srv.distqueries is not None
+    finally:
+        srv.shutdown()
 
 
 def test_entry_point_needs_a_card_unless_told_cpu(monkeypatch):

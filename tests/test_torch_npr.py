@@ -101,12 +101,30 @@ def test_device_distinct_empty_and_sentinel():
         port_dev.device_distinct(keys, use_device="1", device="cpu")
 
 
-def test_explicit_mesh_raises_naming_a16():
-    keys = _keys(3, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        port_dev.device_distinct(keys, use_device="1", mesh=object(),
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+def test_explicit_mesh_rows_equal_one_device():
+    """An explicit 8-shard CPU mesh: device_distinct's rows and counts
+    equal mesh=None's (61 rows: sentinel padding), and run_npr over it
+    writes the policies of mesh=None; a mesh string other than "auto"
+    is refused as the reference refuses it."""
+    from theia_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(devices=[torch.device("cpu")] * 8)
+    keys = _keys(3, 61, card=4)
+    got = port_dev.device_distinct(keys, use_device="1", mesh=mesh)
+    want = port_dev.device_distinct(keys, use_device="1", device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    db = FlowDatabase()
+    db.insert_flows(port_generate(SynthConfig(n_series=24,
+                                              points_per_series=4)))
+    port_npr.run_npr(db, recommendation_id="sh", mesh=mesh)
+    port_npr.run_npr(db, recommendation_id="lo", mesh=None, device="cpu")
+    recs = db.recommendations.scan()
+    ids = recs.strings("id")
+    sh, lo = (sorted(zip(recs.filter(ids == i).strings("kind"),
+                         recs.filter(ids == i).strings("policy")))
+              for i in ("sh", "lo"))
+    assert sh and sh == lo
+    with pytest.raises(ValueError, match="THEIA_MESH"):
         port_npr.run_npr(FlowDatabase(), mesh="rows", device="cpu")
 
 

@@ -183,12 +183,28 @@ def test_run_spatial_matches_reference():
     assert _noise_rows(port_db) == want
 
 
-def test_explicit_mesh_raises_naming_a16():
-    batch = ColumnarBatch.from_rows(_one_off_rows(), FLOW_SCHEMA)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        port_spatial.spatial_outliers(batch, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        port_spatial.run_spatial(FlowDatabase(), mesh="rows", device="cpu")
+def test_explicit_mesh_flags_equal_one_device():
+    """An explicit 8-shard CPU mesh: spatial_outliers finds the noise
+    flows of mesh=None (the row count does not divide the shards), and
+    run_spatial over it writes the same `spatialnoise` rows."""
+    from theia_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(devices=[torch.device("cpu")] * 8)
+    cfg = SynthConfig(n_series=61, points_per_series=9, seed=17)
+    flows = port_generate(cfg)
+    assert len(flows) % 8
+    got = port_spatial.spatial_outliers(flows, mesh=mesh, block=64)
+    want = port_spatial.spatial_outliers(flows, mesh=None, block=64,
+                                         device="cpu")
+    assert want and got == want
+    dbs = FlowDatabase(), FlowDatabase()
+    for db, m in zip(dbs, (mesh, None)):
+        db.insert_flows(port_generate(cfg))
+        db.insert_flows(ColumnarBatch.from_rows(
+            _one_off_rows(), FLOW_SCHEMA, db.flows.dicts))
+        port_spatial.run_spatial(db, spatial_id="s", now=3, mesh=m,
+                                 device="cpu")
+    assert _noise_rows(dbs[0]) and _noise_rows(dbs[0]) == \
+        _noise_rows(dbs[1])
 
 
 @pytest.mark.cuda

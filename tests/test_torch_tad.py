@@ -137,18 +137,36 @@ def test_score_series_device_and_mesh_rules(monkeypatch):
     mask = np.ones((2, 5), bool)
     with pytest.raises(ValueError):
         port_tad.score_series(vals, mask, "KMEANS", device="cpu")
-    with pytest.raises(NotImplementedError):
-        port_tad.score_series(vals, mask, "EWMA", mesh=object(),
-                              device="cpu")
-    with pytest.raises(NotImplementedError):
-        port_tad.run_tad(None, "EWMA", port_series.TadQuerySpec(),
-                         mesh="off", device="cpu")
-    for mesh in ("auto", None):
-        calc, std, anom = port_tad.score_series(vals, mask, "EWMA",
-                                                mesh=mesh, device="cpu")
-        assert isinstance(calc, np.ndarray) and anom.dtype == bool
+    calc, std, anom = port_tad.score_series(vals, mask, "EWMA",
+                                            device="cpu")
+    assert isinstance(calc, np.ndarray) and anom.dtype == bool
     # the default device is the card: without one it raises, it never
     # runs quietly on the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_tad.score_series(vals, mask, "EWMA")
+
+
+@pytest.mark.parametrize("algo", port_tad.ALGORITHMS)
+def test_explicit_mesh_rows_equal_one_device(algo):
+    """An explicit 8-shard CPU mesh scores the rows of mesh=None (24
+    series: three a shard); "auto" on the CPU is one device, and a
+    mesh string other than "auto" is refused as the reference
+    refuses it."""
+    from theia_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(devices=[torch.device("cpu")] * 8)
+    db = FlowDatabase()
+    db.insert_flows(_flows(points_per_series=24))
+    spec = port_series.TadQuerySpec()
+    for tad_id, m in (("sh", mesh), ("lo", None), ("auto", "auto")):
+        port_tad.run_tad(db, algo, spec, tad_id=tad_id, now=0, mesh=m,
+                         device="cpu")
+    data = db.tadetector.scan()
+    ids = data.strings("id")
+    rows = {i: [{k: v for k, v in r.items() if k != "id"}
+                for r in data.filter(ids == i).to_rows()]
+            for i in ("sh", "lo", "auto")}
+    assert any(r["anomaly"] == "true" for r in rows["lo"])
+    assert rows["sh"] == rows["lo"] == rows["auto"]
+    with pytest.raises(ValueError, match="THEIA_MESH"):
+        port_tad.run_tad(db, algo, spec, mesh="off", device="cpu")

@@ -3,9 +3,9 @@
 Ports theia_tpu/analysis/waivers.py: the reference's waivers whose
 findings exist at the port's paths (``theia_tpu_torch/...``), with the
 invariant text unchanged. The ones for code the port does not have yet
-(the cluster tier's node and replication modules, the CLI, and the
-memory-stats probe the torch ``device_infos`` does not need) are left
-out, since the gate fails a waiver that matches nothing.
+(the CLI, and the memory-stats probe the torch ``device_infos`` does
+not need) are left out, since the gate fails a waiver that matches
+nothing.
 
 Every entry matches finding KEYS (``fnmatch`` glob against the stable
 key, never line numbers) and MUST cite the invariant that makes the
@@ -45,6 +45,22 @@ WAIVERS = [
     # -- torn-read -------------------------------------------------------
     {
         "check": "torn-read",
+        "match": "torn-read:theia_tpu_torch/cluster/node.py:ClusterNode:*",
+        "invariant": (
+            "Role transitions (promote/step_down) rebind each of "
+            "role/term/leader/follower in single assignments under "
+            "cluster.node. Every lock-free reader snapshots ONE "
+            "attribute into a local, None-checks it, and tolerates "
+            "staleness by protocol: a stale role answer yields a 307 "
+            "redirect or ClusterStateError that the producer/peer "
+            "retries, and step_down/promote re-validate role under "
+            "the lock before acting. No reader dereferences a "
+            "role-dependent attribute without its own None-check, so "
+            "a torn (role, leader) pair cannot crash — it can only "
+            "produce a retried refusal."),
+    },
+    {
+        "check": "torn-read",
         "match": "torn-read:theia_tpu_torch/store/wal.py:WriteAheadLog:"
                  "_dirty_records,_last_sync_t",
         "invariant": (
@@ -81,6 +97,29 @@ WAIVERS = [
             "path consumes the racy pair."),
     },
     # -- swallowed-except ------------------------------------------------
+    {
+        "check": "swallowed-except",
+        "match": "swallowed-except:theia_tpu_torch/cluster/node.py:"
+                 "handle_resync",
+        "invariant": (
+            "Best-effort term extraction from an inbound resync "
+            "payload while this node still believes it leads: on "
+            "parse failure term stays 0 and the code path falls "
+            "through to raising ClusterStateError — the sender "
+            "retries after the heartbeat settles who leads. Failing "
+            "to parse can only REFUSE a resync, never accept a bad "
+            "one."),
+    },
+    {
+        "check": "swallowed-except",
+        "match": "swallowed-except:theia_tpu_torch/cluster/replication.py:"
+                 "stats",
+        "invariant": (
+            "Monitoring surface: wal_position() can raise while the "
+            "store is resyncing/closed; stats() reports pos=0 for "
+            "that render instead of failing /healthz. The durability "
+            "gate reads the position through its own locked path."),
+    },
     {
         "check": "swallowed-except",
         "match": "swallowed-except:theia_tpu_torch/cluster/transport.py:"

@@ -16,11 +16,10 @@ output with staged, batched support counting (Apriori staging):
   level 3: frequent pairs remapped to [0, P); triples encode to
            pair_id*F + fc; support = one scatter-add into P*F.
 
-Every count is an int32 `index_add_` on the device, exact. The
-multi-chip form (transactions sharded over a mesh with an allreduce of
-the count vectors, the reference's `shard_map` branch of
-`_counts_over`) is left out (ROADMAP A16): `mesh` takes "auto" or
-None, both one device.
+Every count is an int32 `index_add_` on the device, exact. With a
+mesh, transactions shard over the mesh's first axis and each level's
+count vectors are summed over the shards (the reference's `shard_map`
++ psum branch of `_counts_over`).
 
 Transactions here are flow tuples: each row contributes one item per
 selected column (e.g. sourcePodNamespace, destinationPodNamespace,
@@ -38,7 +37,7 @@ import numpy as np
 import torch
 
 from ..schema import ColumnarBatch
-from ..utils.device import resolve_device, single_device
+from ..utils.device import auto_mesh, resolve_device
 
 DEFAULT_COLUMNS = (
     "sourcePodNamespace", "destinationPodNamespace",
@@ -131,15 +130,15 @@ def mine_frequent_patterns(
         ) -> List[Tuple[Tuple[Tuple[str, str], ...], int]]:
     """All itemsets (as ((column, value), ...) tuples) with support >=
     min_support, FP-Growth-equivalent output, counted on `device`.
-    `mesh`: "auto" or None (one device); any other raises."""
-    single_device(mesh)
-    dev = resolve_device(device)
+    With `mesh`, transactions shard over the mesh's first axis and
+    each level's counts are summed over the shards (psum)."""
+    dev = None if mesh is not None else resolve_device(device)
     n = len(flows)
     if n == 0:
         return []
     items, table = _encode_items(flows, columns)
     n_items = len(table)
-    count_1 = _counts_over(items, dev,
+    count_1 = _counts_over(items, mesh, dev,
                            partial(_support_1, n_items=n_items))
 
     def decode(item_id: int) -> Tuple[str, str]:
@@ -166,7 +165,7 @@ def mine_frequent_patterns(
     remap = np.full(n_items, -1, np.int32)
     remap[frequent_1] = np.arange(f, dtype=np.int32)
     dense = remap[items]
-    count_2 = _counts_over(dense, dev, partial(_support_2, f=f))
+    count_2 = _counts_over(dense, mesh, dev, partial(_support_2, f=f))
     freq_pairs = np.nonzero(count_2 >= min_support)[0]
     for pid in freq_pairs:
         lo, hi = divmod(int(pid), f)
@@ -185,7 +184,7 @@ def mine_frequent_patterns(
     pair_remap = np.full(f * f, -1, np.int32)
     pair_remap[freq_pairs] = np.arange(p, dtype=np.int32)
     count_3 = _counts_over(
-        dense, dev,
+        dense, mesh, dev,
         partial(_support_3, p=p, f=f),
         extra=pair_remap)
     for tid in np.nonzero(count_3 >= min_support)[0]:
@@ -215,15 +214,19 @@ def run_pattern_mining(db,
     The user-facing form of the north-star FP-Growth config — a job
     kind beside TAD/NPR (the reference has no itemset mining at all).
     min_support=0 auto-scales to 1% of the window's rows (floor 2).
-    Support counts run on `device`; `mesh` is "auto" or None, both one
-    device (ROADMAP A16).
+    mesh="auto" shards transactions over every visible card with
+    psum-allreduced support counts when `device` is a card
+    (utils.device.auto_mesh); without a mesh, support counts run on
+    `device`.
     """
     import time as _time
     import uuid as _uuid
 
-    single_device(mesh)
-    resolve_device(device)
     mining_id = mining_id or str(_uuid.uuid4())
+    if mesh == "auto":
+        mesh = auto_mesh(device)
+    if mesh is None:
+        resolve_device(device)
 
     if progress:
         progress.stage("read")
@@ -238,7 +241,8 @@ def run_pattern_mining(db,
     if progress:
         progress.stage("mine")
     patterns = mine_frequent_patterns(
-        flows, support, columns=columns, max_len=max_len, device=device)
+        flows, support, columns=columns, max_len=max_len, mesh=mesh,
+        device=device)
 
     if progress:
         progress.stage("write")
@@ -260,11 +264,36 @@ def run_pattern_mining(db,
     return mining_id
 
 
-def _counts_over(rows: np.ndarray, device: torch.device, fn,
+def _counts_over(rows: np.ndarray, mesh, device, fn,
                  extra: Optional[np.ndarray] = None) -> np.ndarray:
-    """Run a support-count function over all rows on `device`; the
-    counts come back as numpy."""
-    args = [torch.from_numpy(np.ascontiguousarray(rows)).to(device)]
-    if extra is not None:
-        args.append(torch.from_numpy(extra).to(device))
-    return fn(*args).cpu().numpy()
+    """Run a support-count function over all rows: on `device`, or
+    over the mesh's first axis with the shards' counts summed in shard
+    order (theia_tpu/analytics/itemsets.py:256-290: shard_map + psum;
+    the later axes replicate). The counts come back as numpy."""
+    def count(block: np.ndarray, dev) -> torch.Tensor:
+        args = [torch.from_numpy(np.ascontiguousarray(block)).to(dev)]
+        if extra is not None:
+            args.append(torch.from_numpy(extra).to(dev))
+        return fn(*args)
+
+    if mesh is None:
+        return count(rows, device).cpu().numpy()
+    from ..parallel.mesh import psum
+
+    n_dev = mesh.shape[mesh.axis_names[0]]
+    devs = mesh.devices.reshape(n_dev, -1)[:, 0]
+    pad = (-len(rows)) % n_dev
+    if pad:
+        # Padding rows use item id 0; subtract their contribution after.
+        rows = np.concatenate(
+            [rows, np.zeros((pad, rows.shape[1]), rows.dtype)])
+    n_loc = len(rows) // n_dev
+    counts = psum([count(rows[i * n_loc:(i + 1) * n_loc], d)
+                   for i, d in enumerate(devs)])[0]
+    counts = counts.cpu().numpy().copy()
+    if pad:
+        # Remove the padded rows' counts (they all landed on id 0's
+        # buckets — recompute their exact contribution).
+        pad_rows = np.zeros((pad, rows.shape[1]), rows.dtype)
+        counts -= count(pad_rows, devs[0]).cpu().numpy()
+    return counts

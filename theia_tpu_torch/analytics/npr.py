@@ -18,8 +18,8 @@ by the port's `npr_device.device_distinct` (a lexicographic sort and
 a segment sum); everything after operates on the (small) deduplicated
 set and is host-side string/YAML work, as in the reference, verbatim.
 Only `read_distinct_flows` and `run_npr` differ from the reference:
-they take `device=`, and `mesh` accepts "auto" or None, both one
-device (the sharded DISTINCT is ROADMAP A16).
+they take `device=` for the one-device DISTINCT; a mesh shards it
+over the mesh's devices (npr_device.make_sharded_distinct).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import numpy as np
 
 from ..schema import ColumnarBatch
 from ..store import FlowDatabase
-from ..utils.device import resolve_device, single_device
+from ..utils.device import auto_mesh, resolve_device
 from . import policy_gen
 from .npr_device import device_distinct
 from .policy_gen import (
@@ -311,15 +311,33 @@ def run_npr(db: FlowDatabase,
             progress=None, mesh="auto", device="cuda") -> str:
     """Run a full NPR job against the database; returns the job id.
 
-    `mesh`: "auto" or None, both one device; any other raises (ROADMAP
-    A16). The DISTINCT runs on `device` once the window is large
-    enough (THEIA_NPR_DEVICE, see npr_device.device_distinct).
+    `mesh`: "auto" shards the DISTINCT kernel over every visible card
+    when `device` is a card (utils.device.auto_mesh; one-card hosts
+    keep the one-device path on `device`), None forces one device, or
+    pass an explicit mesh. Any mesh is flattened onto a rows axis for
+    the distinct shuffle. Without a mesh the DISTINCT runs on `device`
+    once the window is large enough (THEIA_NPR_DEVICE, see
+    npr_device.device_distinct).
     """
     if recommendation_type not in ("initial", "subsequent"):
         raise ValueError(
             f"type must be initial|subsequent, got {recommendation_type}")
-    single_device(mesh)
-    resolve_device(device)
+    use_device = None
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(
+                f"mesh must be 'auto', None or a Mesh, got {mesh!r} "
+                f"(use THEIA_MESH=off to disable sharding)")
+        mesh = auto_mesh(device)
+    elif mesh is not None:
+        # An explicitly passed mesh is an opt-in to the device
+        # distinct — don't gate it behind the auto size threshold.
+        use_device = True
+    if mesh is not None:
+        from ..parallel import make_rows_mesh
+        mesh = make_rows_mesh(devices=mesh.devices.flatten())
+    else:
+        resolve_device(device)
     ns_allow_list = list(ns_allow_list if ns_allow_list is not None
                          else NAMESPACE_ALLOW_LIST)
     recommendation_id = recommendation_id or str(uuid.uuid4())
@@ -329,7 +347,8 @@ def run_npr(db: FlowDatabase,
     flows = db.flows.scan()
     unprotected = read_distinct_flows(
         flows, limit, start_time, end_time, unprotected=True,
-        rm_labels=rm_labels, device=device)
+        rm_labels=rm_labels, mesh=mesh, use_device=use_device,
+        device=device)
 
     if progress:
         progress.stage("recommend")
@@ -344,7 +363,8 @@ def run_npr(db: FlowDatabase,
         if option in (1, 2):
             trusted = read_distinct_flows(
                 flows, limit, start_time, end_time, unprotected=False,
-                rm_labels=rm_labels, device=device)
+                rm_labels=rm_labels, mesh=mesh, use_device=use_device,
+                device=device)
             result = merge_policy_dict(
                 result,
                 recommend_antrea_policies(

@@ -16,10 +16,9 @@ variant its benchmark config names.
 
 Ports theia_tpu/analytics/spatial.py: the embedding is the reference's
 numpy code, verbatim; the pairwise pass runs on `device=` (default
-"cuda") through the port's `ops.dbscan.dbscan_points_noise`. Only
-`spatial_outliers` and `run_spatial` differ: they take `device=`, and
-`mesh` accepts "auto" or None, both one device (the sharded pass is
-ROADMAP A16).
+"cuda") through the port's `ops.dbscan.dbscan_points_noise`, or over
+a mesh (parallel.make_sharded_points_dbscan). Only `spatial_outliers`
+and `run_spatial` differ: they take `device=` for the one-device pass.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import torch
 
 from ..ops.dbscan import dbscan_points_noise
 from ..schema import ColumnarBatch
-from ..utils.device import resolve_device, single_device
+from ..utils.device import auto_mesh, resolve_device
 
 # Categorical axes are scaled so ANY identity mismatch dominates a
 # volume difference: hash coordinates in [0, SCALE) with SCALE >> eps.
@@ -80,20 +79,38 @@ def spatial_outliers(flows: ColumnarBatch,
                      ) -> List[Dict[str, object]]:
     """Flows outside every recurring traffic pattern. Returns one dict
     per noise flow: decoded source/destination/port/bytes. The
-    pairwise pass runs on `device`; `mesh` is "auto" or None (one
-    device). `embeddings` lets a caller that already embedded the
-    flows (run_spatial's staged progress) skip recomputation."""
-    single_device(mesh)
-    dev = resolve_device(device)
+    pairwise pass runs on `device`; with `mesh`, it shards rows over
+    the mesh with all_gathered points/core-flags
+    (parallel.make_sharded_points_dbscan). `embeddings` lets a caller
+    that already embedded the flows (run_spatial's staged progress)
+    skip recomputation."""
     n = len(flows)
     if n == 0:
         return []
     emb = embeddings if embeddings is not None \
         else flow_embeddings(flows)
-    noise = dbscan_points_noise(
-        torch.from_numpy(np.ascontiguousarray(emb)).to(dev),
-        torch.ones(n, dtype=torch.bool, device=dev), eps=eps,
-        min_samples=min_samples, block=block).cpu().numpy()
+    if mesh is not None:
+        from ..parallel import make_sharded_points_dbscan, \
+            pad_to_multiple
+        from ..parallel.mesh import ROWS_AXIS, make_rows_mesh
+        if ROWS_AXIS not in mesh.axis_names:
+            # job_mesh() hands out the (series x time) job mesh; the
+            # points kernel shards tile ROWS — rebuild over the same
+            # devices with the rows axis.
+            mesh = make_rows_mesh(devices=mesh.devices.flatten())
+        n_dev = mesh.devices.size
+        padded, _ = pad_to_multiple(emb, n_dev, axis=0)
+        valid = np.zeros(len(padded), bool)
+        valid[:n] = True
+        noise = make_sharded_points_dbscan(
+            mesh, eps=eps, min_samples=min_samples, block=block)(
+            padded, valid).cpu().numpy()[:n]
+    else:
+        dev = resolve_device(device)
+        noise = dbscan_points_noise(
+            torch.from_numpy(np.ascontiguousarray(emb)).to(dev),
+            torch.ones(n, dtype=torch.bool, device=dev), eps=eps,
+            min_samples=min_samples, block=block).cpu().numpy()
     idx = np.nonzero(noise)[0]
     src = flows.strings("sourceIP")
     dst = flows.strings("destinationIP")
@@ -121,15 +138,18 @@ def run_spatial(db,
     The user-facing form of the north-star spatial-DBSCAN config — a
     job kind beside TAD/NPR (the reference's DBSCAN is per-connection
     1-D throughput only, plugins/anomaly-detection/
-    anomaly_detection.py:325-349). The pairwise pass runs on `device`;
-    `mesh` is "auto" or None, both one device (ROADMAP A16).
+    anomaly_detection.py:325-349). mesh="auto" shards the pairwise
+    pass over every visible card when `device` is a card
+    (utils.device.auto_mesh); without a mesh it runs on `device`.
     """
     import time as _time
     import uuid as _uuid
 
-    single_device(mesh)
-    resolve_device(device)
     spatial_id = spatial_id or str(_uuid.uuid4())
+    if mesh == "auto":
+        mesh = auto_mesh(device)
+    if mesh is None:
+        resolve_device(device)
 
     if progress:
         progress.stage("read")
@@ -146,7 +166,7 @@ def run_spatial(db,
     if progress:
         progress.stage("score")
     outliers = spatial_outliers(flows, eps=eps,
-                                min_samples=min_samples,
+                                min_samples=min_samples, mesh=mesh,
                                 embeddings=emb, device=device)
 
     if progress:

@@ -1,43 +1,37 @@
-"""The multi-node cluster tier's error types, which the manager's
-request handlers map to HTTP codes, and its transport's peer header
-(transport.py).
+"""Multi-node cluster tier: membership, WAL log-shipping replication,
+ingest routing, partition-tolerant failover (docs/cluster.md)."""
 
-Membership, WAL log-shipping replication, ingest routing and failover
-are not ported yet (ROADMAP A19): the manager refuses a peer list, so
-on a single node these errors are never raised. Each class is the
-reference's own, from the module named beside it."""
+from .membership import (
+    ClusterConfigError,
+    ClusterMap,
+    HeartbeatLoop,
+    parse_peers,
+)
+from .node import ClusterNode, ClusterStateError
+from .replication import (
+    ACK_POLICIES,
+    FollowerApplier,
+    ReplicationLagError,
+    ReplicationLeader,
+    StaleReadError,
+)
+from .router import IngestRouter, RouterForwardError
+from .transport import ClusterTransport, PeerUnreachable
 
 __all__ = [
+    "ACK_POLICIES",
+    "ClusterConfigError",
+    "ClusterMap",
+    "ClusterNode",
     "ClusterStateError",
+    "ClusterTransport",
+    "FollowerApplier",
+    "HeartbeatLoop",
+    "IngestRouter",
+    "PeerUnreachable",
     "ReplicationLagError",
+    "ReplicationLeader",
     "RouterForwardError",
     "StaleReadError",
+    "parse_peers",
 ]
-
-
-# cluster/node.py
-class ClusterStateError(Exception):
-    """A cluster control operation conflicts with this node's current
-    state (promote below the applied LSN, promote on a leader, ...) —
-    HTTP 409."""
-
-
-# cluster/replication.py
-class ReplicationLagError(Exception):
-    """The configured ack quorum cannot be met right now (followers
-    down/lagging/partitioned) — HTTP 503: retry later, the dedup
-    window makes the retry idempotent."""
-
-
-# cluster/replication.py
-class StaleReadError(Exception):
-    """A bounded-staleness follower read exceeded the staleness budget
-    (HTTP 503 — read from the leader or retry after catch-up)."""
-
-
-# cluster/router.py
-class RouterForwardError(Exception):
-    """A forwarded slice could not be acknowledged by its owner (after
-    the client's full retry budget) — HTTP 503: the producer retries
-    the whole batch; every already-landed slice resolves
-    duplicate:true."""

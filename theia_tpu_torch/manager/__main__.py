@@ -4,10 +4,9 @@ Ports theia_tpu/manager/__main__.py. `--device` (default cuda) is
 where the detectors and the jobs' analytics run; without a card the
 manager exits unless `--device cpu` is given. `--dispatch subprocess`
 runs each job in a `python -m theia_tpu_torch.runner` child on the same
-device, and `--reconcile-dir` reconciles CR documents into jobs, as in
-the reference. The multi-node flags (--peers, --node-id, --role,
---repl-acks) and THEIA_CLUSTER_PEERS are not ported yet (ROADMAP A19)
-and exit with an error.
+device, `--reconcile-dir` reconciles CR documents into jobs, and the
+multi-node flags (--peers, --node-id, --role, --repl-acks, or
+THEIA_CLUSTER_PEERS) join the cluster tier, as in the reference.
 
 Usage:
   python -m theia_tpu_torch.manager [--device cuda|cpu] [--db flows.npz]
@@ -177,16 +176,6 @@ def main(argv=None) -> None:
                         "into jobs (the CRD control-plane seam; status "
                         "written back as <name>.status.yaml)")
     args = p.parse_args(argv)
-    for flag, value in (("--peers", args.peers),
-                        ("--node-id", args.node_id),
-                        ("--role", args.role),
-                        ("--repl-acks", args.repl_acks)):
-        if value is not None:
-            p.error(f"{flag}: the cluster tier is not ported to "
-                    "theia_tpu_torch yet (ROADMAP A19)")
-    if os.environ.get("THEIA_CLUSTER_PEERS", "").strip():
-        p.error("THEIA_CLUSTER_PEERS: the cluster tier is not ported to "
-                "theia_tpu_torch yet (ROADMAP A19)")
 
     from ..store import FlowDatabase, ShardedFlowDatabase
     from ..utils import get_logger, set_verbosity
@@ -333,7 +322,15 @@ def main(argv=None) -> None:
         tls_key=args.tls_key, tls_ca=args.tls_ca,
         auth_token=args.auth_token,
         auth_token_file=args.auth_token_file,
-        ingest_shards=args.ingest_shards, device=args.device)
+        ingest_shards=args.ingest_shards,
+        cluster_peers=args.peers, cluster_self=args.node_id,
+        cluster_role=args.role, cluster_acks=args.repl_acks,
+        device=args.device)
+    if server.cluster is not None:
+        print(f"cluster node {server.cluster.cmap.self_id} "
+              f"role={server.cluster.role} "
+              f"peers={','.join(server.cluster.cmap.order)}",
+              file=sys.stderr)
     if server.auth_token:
         print("API authentication enabled (bearer token)",
               file=sys.stderr)

@@ -1391,15 +1391,6 @@ class TheiaManagerServer:
                  device="cuda") -> None:
         import os as _os
 
-        # The cluster tier is not ported yet: refuse it before any
-        # thread starts, whoever asks (argument or environment).
-        peers_spec = (cluster_peers
-                      if cluster_peers is not None
-                      else _os.environ.get("THEIA_CLUSTER_PEERS", ""))
-        if peers_spec.strip():
-            raise ValueError(
-                "cluster_peers / THEIA_CLUSTER_PEERS: the cluster tier "
-                "is not ported to theia_tpu_torch yet (ROADMAP A19)")
         from .ingest import IngestManager
         self.ingest = IngestManager(db, n_shards=ingest_shards,
                                     device=device)
@@ -1475,9 +1466,47 @@ class TheiaManagerServer:
                 self.maintenance = PartMaintenanceLoop(
                     db, interval=merge_interval)
 
-        # Single node: the cluster tier was refused above.
+        # Multi-node cluster tier (theia_tpu/cluster): membership +
+        # heartbeats, and per role the replication leader (WAL
+        # shipping + quorum acks wired into the ingest durability
+        # gate), the follower applier, or the ingest router. Off
+        # entirely without a peer list — single-node managers carry
+        # zero cluster overhead.
         self.cluster = None
         self.distqueries = None
+        peers_spec = (cluster_peers
+                      if cluster_peers is not None
+                      else _os.environ.get("THEIA_CLUSTER_PEERS", ""))
+        if peers_spec.strip():
+            from ..cluster import ClusterNode
+            self.cluster = ClusterNode(
+                db, self.ingest, peers=peers_spec,
+                self_id=cluster_self, role=cluster_role,
+                acks=cluster_acks, token=self.auth_token or "",
+                query_engine=self.queries)
+            # stamp this node's id on every span it records, so the
+            # cluster-stitched trace view attributes each span to the
+            # node that ran it
+            _obs_trace.set_node_id(self.cluster.cmap.self_id)
+            # Scatter-gather /query on the routing mesh: data is
+            # spread by destination hash, so the receiving node
+            # coordinates a cluster-wide answer (leader/follower
+            # topologies replicate the whole store — their local
+            # engine already answers cluster-wide).
+            if self.cluster.role == "peer" and \
+                    len(self.cluster.cmap.order) > 1:
+                from ..query import ClusterQueryCoordinator
+                self.distqueries = ClusterQueryCoordinator(
+                    self.cluster, self.queries)
+            # wired unconditionally: the gate checks the node's role
+            # at CALL time, so a follower promoted to leader later
+            # starts enforcing the quorum without rewiring
+            self.ingest.durability_gate = self.cluster.durability_gate
+            if self.ingest.admission is not None:
+                from ..utils.env import env_int as _env_int
+                self.ingest.admission.add_signal(
+                    "replLag", self.cluster.repl_lag,
+                    _env_int("THEIA_REPL_LAG_HIGH", 10_000))
 
         # Metrics history: the scrape-to-store loop (obs/history.py)
         # snapshots the process registry into the parts-backed

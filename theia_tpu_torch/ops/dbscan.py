@@ -273,41 +273,80 @@ def _within(tile: torch.Tensor, points: torch.Tensor, x2: torch.Tensor,
     return d2 <= eps2
 
 
+def _pad_rows(a: torch.Tensor, multiple: int) -> torch.Tensor:
+    """`a` with zero rows appended up to a multiple of `multiple`."""
+    pad = (-a.shape[0]) % multiple
+    if pad:
+        a = torch.cat([a, a.new_zeros((pad, *a.shape[1:]))])
+    return a
+
+
+def points_neighbour_counts(rows: torch.Tensor, points: torch.Tensor,
+                            valid: torch.Tensor, eps: float,
+                            block: int = 1024) -> torch.Tensor:
+    """The count pass: for each of `rows` ([M, F] float32), how many
+    valid points of `points` ([N, F] float32, `valid` [N] bool) lie
+    within eps — itself included when it is one of them. int64 [M].
+
+    Rows go in [block, N] tiles (M padded to a multiple of block), so
+    every distance product has the same shape whichever rows a caller
+    passes: the one-device pass (rows = points) and a shard's pass
+    over its row block (parallel.tad_sharded) compute each pair the
+    same way. TF32 is switched off first (see dbscan_points_noise)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = rows.shape[0]
+    rows = _pad_rows(rows, block)
+    x2 = (points * points).sum(-1)
+    eps2 = eps * eps
+    counts = torch.empty(rows.shape[0], dtype=torch.int64,
+                         device=rows.device)
+    for i in range(0, rows.shape[0], block):
+        w = _within(rows[i:i + block], points, x2, eps2)
+        w &= valid[None, :]
+        counts[i:i + block] = w.sum(-1)
+    return counts[:m]
+
+
+def points_reachable(rows: torch.Tensor, points: torch.Tensor,
+                     core: torch.Tensor, eps: float,
+                     block: int = 1024) -> torch.Tensor:
+    """The reach pass: for each of `rows`, whether a core point of
+    `points` (`core` [N] bool) lies within eps. bool [M]; tiled as
+    `points_neighbour_counts`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = rows.shape[0]
+    rows = _pad_rows(rows, block)
+    x2 = (points * points).sum(-1)
+    eps2 = eps * eps
+    reachable = torch.empty(rows.shape[0], dtype=torch.bool,
+                            device=rows.device)
+    for i in range(0, rows.shape[0], block):
+        w = _within(rows[i:i + block], points, x2, eps2)
+        w &= core[None, :]
+        reachable[i:i + block] = w.any(-1)
+    return reachable[:m]
+
+
 def dbscan_points_noise(points: torch.Tensor, valid: torch.Tensor,
                         eps: float, min_samples: int = DEFAULT_MIN_SAMPLES,
                         block: int = 1024) -> torch.Tensor:
     """Noise flags [N] bool for [N, F] float points (`valid` masks
     padding), on the points' device. Exact O(N^2) pairwise
-    computation, O(N*block) memory.
+    computation, O(N*block) memory: the count pass, core flags, the
+    reach pass.
 
     The distance product runs in full float32: the reference asks XLA
     for `Precision.HIGHEST`, and TF32 would keep ~10 mantissa bits of
-    products of ~scale² and swamp eps². So this switches TF32 off for
-    CUDA matmuls (process-wide, as ops/sketch.py does at import)
+    products of ~scale² and swamp eps². So each pass switches TF32 off
+    for CUDA matmuls (process-wide, as ops/sketch.py does at import)
     before its first product, whoever turned it on."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     points = points.to(torch.float32)
     valid = valid.to(torch.bool)
     n = points.shape[0]
-    pad = (-n) % block
-    if pad:
-        points = torch.cat([points, points.new_zeros((pad, points.shape[1]))])
-        valid = torch.cat([valid, valid.new_zeros(pad)])
-    eps2 = eps * eps
-    x2 = (points * points).sum(-1)
-
-    counts = torch.empty(points.shape[0], dtype=torch.int64,
-                         device=points.device)
-    for i in range(0, points.shape[0], block):
-        w = _within(points[i:i + block], points, x2, eps2)
-        w &= valid[None, :]
-        counts[i:i + block] = w.sum(-1)
+    points = _pad_rows(points, block)
+    valid = _pad_rows(valid, block)
+    counts = points_neighbour_counts(points, points, valid, eps, block)
     core = (counts >= min_samples) & valid
-
-    reachable = torch.empty_like(valid)
-    for i in range(0, points.shape[0], block):
-        w = _within(points[i:i + block], points, x2, eps2)
-        w &= core[None, :]
-        reachable[i:i + block] = w.any(-1)
+    reachable = points_reachable(points, points, core, eps, block)
     noise = valid & ~core & ~reachable
     return noise[:n]

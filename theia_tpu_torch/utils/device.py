@@ -22,11 +22,10 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def single_device(mesh) -> None:
-    """Only one device is ported: `mesh` "auto" and None both mean it;
-    any other mesh raises rather than being ignored."""
-    if mesh is None or (isinstance(mesh, str) and mesh == "auto"):
-        return
-    raise NotImplementedError(
-        f"mesh {mesh!r}: running over several devices is not ported "
-        "(ROADMAP A16); pass mesh='auto' or None for one device")
+def auto_mesh(device):
+    """What a job's mesh="auto" means on `device`: every visible card
+    (parallel.job_mesh — None on a one-card host or under
+    THEIA_MESH=off) when the job runs on a card, and one device when
+    the caller asked for the CPU."""
+    from ..parallel import job_mesh
+    return job_mesh() if resolve_device(device).type == "cuda" else None
