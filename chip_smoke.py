@@ -33,7 +33,12 @@ on the card:
     shards of the card (parallel/: B2 once a shard), against their
     one-device runs, and the cluster tier — three `python -m
     theia_tpu_torch.manager` processes as a leader/follower quorum
-    through a leader failover, then three as a routing mesh.
+    through a leader failover, then three as a routing mesh;
+  * the `theia` CLI (`python -m theia_tpu_torch.cli`, child processes)
+    against the manager of the jobs slice: ingest (B1), tad run --algo
+    DBSCAN --wait (B2), the group-by query with the query engine's
+    numpy and torch reductions, top, alerts, trace, clickhouse status
+    and profile, none of them loading torch or touching the card.
 
 Each phase prints one JSON line; any failure raises and the script
 exits non-zero. The last line of standard output is
@@ -51,11 +56,12 @@ from four producer streams through admission, dedup, the WAL, the
 parts store and the fused engine), its one-stream parity against the
 CPU, the TAD jobs through the intelligence API, then on the same
 manager the NPR, FPM, SAD and DD jobs (manager_jobs) each held against
-the port on the CPU (jobs_parity), then the same jobs under subprocess
-dispatch over the store they left (manager_subprocess: rows against
-the thread-dispatch rows, dispatch overhead, nvidia-smi, the SIGKILL
-and deadline drills, /ingest and DBSCAN after them; its SAD jobs over
-a 262,144-flow window), a SIGKILL and restart of `python -m
+the port on the CPU (jobs_parity) and the `theia` CLI (cli), then
+the same jobs under subprocess dispatch over the store they left
+(manager_subprocess: rows against the thread-dispatch rows,
+dispatch overhead, nvidia-smi, the SIGKILL and deadline drills,
+/ingest and DBSCAN after them; its SAD jobs over a 557,056-flow
+window), a SIGKILL and restart of `python -m
 theia_tpu_torch.manager` on its WAL, the cluster tier (cluster: the
 quorum failover drill with zero acked rows lost, the routing mesh's
 per-node rows and scatter-gather query), and the working-set state
@@ -74,6 +80,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -1560,9 +1567,10 @@ def phase_manager_tad(blocks, flows, device, snapshot: str,
     manager, then one EWMA and one DBSCAN job created, polled and
     retrieved through the intelligence API; B2's count set to 0 just
     before the DBSCAN job and read just after. Then the jobs slice on
-    the same manager and store (drive_jobs). Last, the store as the
-    jobs left it is saved to `snapshot`, and each job's result rows and
-    SAD's points and flags go into `kept`, for manager_subprocess."""
+    the same manager and store (drive_jobs). Then the store as the jobs
+    left it is saved to `snapshot`, and each job's result rows and
+    SAD's points and flags go into `kept`, for manager_subprocess.
+    Last, the `theia` CLI drives the same manager (phase_cli)."""
     import tempfile
     from theia_tpu_torch.ops import dbscan
 
@@ -1595,6 +1603,8 @@ def phase_manager_tad(blocks, flows, device, snapshot: str,
                                   compress=False)
         out["snapshot"] = {"seconds": time.perf_counter() - t0,
                            "bytes": os.path.getsize(snapshot)}
+        # last, the `theia` CLI against this manager (the cli phase)
+        out["cli"] = phase_cli(port, device)
         return out
 
     with tempfile.TemporaryDirectory(prefix="theia-manager-tad-") as tmp:
@@ -1611,6 +1621,361 @@ def phase_manager_tad(blocks, flows, device, snapshot: str,
     if device.type == "cuda" and out["jobs"]["DBSCAN"]["b2_launches"] < 1:
         raise AssertionError("the API's DBSCAN job did not go through B2")
     return out
+
+
+#: the cli phase: the `theia` CLI (`python -m theia_tpu_torch.cli`) as
+#: child processes against the manager manager_tad drives. `theia
+#: ingest` sends CLI_BATCHES blocks of the ingest cell's 16,384 rows
+#: (CLI_SERIES x CLI_POINTS); `theia profile -d CLI_PROFILE_S` runs
+#: while `theia ingest` children of CLI_PROFILE_BATCHES blocks each, one
+#: after another, post until the profile is back (the manager's
+#: profiler may take many seconds to start its capture)
+CLI_SERIES = 4096
+CLI_POINTS = 4
+CLI_BATCHES = 8
+CLI_PROFILE_S = 2.0
+CLI_PROFILE_BATCHES = 2
+CLI_TIMEOUT_S = 600.0
+#: the query that runs under THEIA_QUERY_JAX=0 (numpy) and =1 (torch on
+#: the manager's device), through the CLI and GET /query
+CLI_QUERY = {"group_by": "sourcePodNamespace,destinationPodNamespace",
+             "agg": "count,sum:octetDeltaCount,min:octetDeltaCount,"
+                    "max:octetDeltaCount", "k": "0"}
+#: in-process timings of the same plan a mode, in turns
+CLI_QUERY_REPEATS = 3
+#: the card's free memory may drop by at most this while a CLI child
+#: runs on an idle manager (a CUDA context takes hundreds of MiB)
+CLI_FREE_SLACK = 64 << 20
+#: a child that reports, after the CLI's main, which of torch, jax and
+#: the reference package it loaded (`python -c CLI_PROBE <cli args>`
+#: runs the CLI as `python -m theia_tpu_torch.cli` does)
+CLI_PROBE = """
+import json, runpy, sys
+code = 0
+try:
+    runpy.run_module("theia_tpu_torch.cli", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+print(json.dumps({"exit": code, "loaded": sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("torch", "jax", "jaxlib", "theia_tpu"))}))
+"""
+
+
+def live_server():
+    """The TheiaManagerServer that run_manager serves in this process:
+    the one whose job controller is still running."""
+    import gc
+    from theia_tpu_torch.manager import TheiaManagerServer
+    ctl = live_controller()
+    servers = [o for o in gc.get_objects()
+               if type(o) is TheiaManagerServer and o.controller is ctl]
+    if len(servers) != 1:
+        raise AssertionError(f"{len(servers)} servers hold the running "
+                             "job controller, want one")
+    return servers[0]
+
+
+def cli_argv(port: int, *args) -> list:
+    return [sys.executable, "-m", "theia_tpu_torch.cli", "--manager-addr",
+            f"http://127.0.0.1:{port}", *args]
+
+
+def cli_child(port: int, *args) -> tuple:
+    """`theia <args>` against the manager on `port`, as a child process:
+    (its standard output, its wall seconds). Fails unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli_argv(port, *args), capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"theia {' '.join(args)} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, seconds
+
+
+def cli_probe(port: int, *args) -> dict:
+    """CLI_PROBE around `theia <args>`: its exit code, the modules of
+    torch, jax and theia_tpu it loaded, and the card's free memory
+    before and at its lowest while it ran (None off the card)."""
+    import torch
+    on_card = torch.cuda.is_available()
+    free = [torch.cuda.mem_get_info()[0]] if on_card else []
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CLI_PROBE, "--manager-addr",
+         f"http://127.0.0.1:{port}", *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    while proc.poll() is None and on_card:
+        free.append(torch.cuda.mem_get_info()[0])
+        time.sleep(0.01)
+    out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI probe of {args} exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    doc = json.loads(out.strip().splitlines()[-1])
+    doc.update(args=list(args), free_before=free[0] if free else None,
+               min_free_during=min(free) if free else None)
+    return doc
+
+
+def trace_kernel_events(path: str) -> tuple:
+    """A `theia profile` tarball's member names, the CUDA kernel events
+    of its trace.json, and its event count by category."""
+    import collections
+    import tarfile
+    with tarfile.open(path, mode="r:gz") as tar:
+        names = tar.getnames()
+        trace = json.load(tar.extractfile("trace.json"))
+    events = trace.get("traceEvents", [])
+    kernels = [ev for ev in events
+               if str(ev.get("cat", "")).lower() == "kernel"]
+    return names, kernels, dict(collections.Counter(
+        str(ev.get("cat", "")) for ev in events))
+
+
+def phase_cli(port: int, device) -> dict:
+    """The `theia` CLI against the manager on `port`, which this process
+    serves (so B1's and B2's counts and the query engine are read
+    in-process): version; ingest (B1's counts set to 0 just before,
+    read just after); tad run --algo DBSCAN --wait and retrieve (B2's)
+    before the drop month; the same group-by query under
+    THEIA_QUERY_JAX=0 and =1, set in this process's environment before
+    each call, against GET /query; top, alerts, trace, clickhouse
+    status; profile while ingest children post. Every command is a child process, and none may load torch or
+    jax or open a CUDA context: a probe child reports its modules, and
+    nvidia-smi's process listing must not grow over the phase."""
+    import datetime
+    import tempfile
+    import urllib.parse
+    from theia_tpu_torch import __version__
+    from theia_tpu_torch.ops import dbscan
+    from theia_tpu_torch.ops import fused_detector as fd
+    from theia_tpu_torch.query import kernels as qk
+    from theia_tpu_torch.query import plan_from_params
+    on_card = device.type == "cuda"
+    server = live_server()
+    out: dict = {"wall_s": {}}
+
+    def run(label: str, *args) -> str:
+        text, seconds = cli_child(port, *args)
+        out["wall_s"][label] = seconds
+        return text
+
+    t_phase = time.perf_counter()
+    watch = CardWatch() if on_card else contextlib.nullcontext()
+    with watch, tempfile.TemporaryDirectory(prefix="theia-cli-") as tmp:
+        out["start_s"] = sorted(cli_child(port, "--help")[1]
+                                for _ in range(3))
+        out["probes"] = [cli_probe(port, "--help"),
+                         cli_probe(port, "version")]
+        text = run("version", "version")
+        if f"theia version: {__version__}" not in text \
+                or "theia-manager version: unavailable" in text:
+            raise AssertionError(f"theia version printed {text!r}")
+
+        # ingest: B1 from the CLI's blocks
+        steps0 = http_json(port, "/healthz")["ingest"]["engine"]["steps"]
+        rows0 = total_rows(port)
+        fd.launches = fd.tiles = 0
+        text = run("ingest", "ingest", "--stream", "cli", "--batches",
+                   str(CLI_BATCHES), "--series", str(CLI_SERIES),
+                   "--points", str(CLI_POINTS))
+        b1, b1_tiles = fd.launches, fd.tiles
+        steps = (http_json(port, "/healthz")["ingest"]["engine"]["steps"]
+                 - steps0)
+        acked = int(re.search(r"acked (\d+) rows", text).group(1))
+        out["ingest"] = {"acked": acked,
+                         "total_rows_growth": total_rows(port) - rows0,
+                         "fused_steps": steps, "b1_launches": b1,
+                         "b1_tiles": b1_tiles, "printed": text.strip()}
+        if not acked == out["ingest"]["total_rows_growth"] \
+                == CLI_BATCHES * CLI_SERIES * CLI_POINTS or steps < 1:
+            raise AssertionError(f"theia ingest: {out['ingest']}")
+        if on_card and b1 != steps:
+            raise AssertionError(f"B1 launched {b1} times over {steps} "
+                                 "fused steps of `theia ingest`")
+
+        # tad run --wait and retrieve: B2 from the CLI's job, over the
+        # TAD flows and the CLI's (its window ends where the drop month
+        # starts: DBSCAN calls nearly every drop flow noise, 1,171,039
+        # rows that took 106 s to run and retrieve)
+        end = datetime.datetime.fromtimestamp(
+            DD_DAY0 * 86400, datetime.timezone.utc).strftime(
+                "%Y-%m-%d %H:%M:%S")
+        dbscan.launches = 0
+        text = run("tad_run", "tad", "run", "--algo", "DBSCAN",
+                   "--end-time", end, "--wait")
+        b2 = dbscan.launches
+        name = re.search(r"name: (tad-[0-9a-f-]{36})", text).group(1)
+        path = os.path.join(tmp, "tad.json")
+        run("tad_retrieve", "tad", "retrieve", name, "-f", path)
+        with open(path) as f:
+            got = sorted(json.dumps(r, sort_keys=True)
+                         for r in json.load(f))
+        want = sorted(json.dumps(r, sort_keys=True) for r in http_json(
+            port, f"{INTELLIGENCE}/{name}")["stats"])
+        out["tad"] = {"name": name, "b2_launches": b2,
+                      "rows": len(got), "rows_equal_api": got == want}
+        if not got or got != want or (on_card and b2 != 1):
+            raise AssertionError(f"theia tad: {out['tad']}")
+
+        # the query, numpy then torch, through the CLI and GET /query
+        params = dict(CLI_QUERY)
+        argv = ["query", "--group-by", params["group_by"],
+                *[a for agg in params["agg"].split(",")
+                  for a in ("--agg", agg)], "-k", params["k"],
+                "--json", "--explain"]
+        reduced: list = []
+        real = qk._reduce_torch
+
+        def counted(gids, n_groups, vals, specs, dev):
+            reduced.append(str(dev))
+            return real(gids, n_groups, vals, specs, dev)
+
+        queries = {}
+        qk._reduce_torch = counted
+        try:
+            for mode, knob in (("numpy", "0"), ("torch", "1")):
+                with environ(THEIA_QUERY_JAX=knob):
+                    server.queries.cache.clear()
+                    del reduced[:]
+                    doc = json.loads(run(f"query_{mode}", *argv))
+                    queries[mode] = {
+                        "doc": doc, "calls": list(reduced),
+                        "get": http_json(port, "/query?" + urllib.parse
+                                         .urlencode(params))}
+            plan = plan_from_params(params)
+            timed = {"numpy": [], "torch": []}
+            for mode in ("numpy", "torch", "torch", "numpy") \
+                    * CLI_QUERY_REPEATS:
+                with environ(THEIA_QUERY_JAX="1" if mode == "torch"
+                             else "0"):
+                    t0 = time.perf_counter()
+                    server.queries.execute(plan, use_cache=False)
+                    timed[mode].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            qk._reduce_torch = real
+        rows = {m: q["doc"]["rows"] for m, q in queries.items()}
+        out["query"] = {
+            "rows_scanned": queries["torch"]["doc"]["rowsScanned"],
+            "groups": queries["torch"]["doc"]["groupCount"],
+            "engine_device": str(server.queries.device),
+            "rows_equal": rows["numpy"] == rows["torch"],
+            "equal_get_query": all(q["get"]["rows"] == rows["numpy"]
+                                   for q in queries.values()),
+            "torch_reductions": len(queries["torch"]["calls"]),
+            "torch_reduction_devices": sorted(set(
+                queries["torch"]["calls"])),
+            "numpy_reductions_on_torch": len(queries["numpy"]["calls"]),
+            "in_process_ms": {m: sorted(v) for m, v in timed.items()},
+            "trace_id": queries["torch"]["doc"].get("traceId")}
+        for mode, q in queries.items():
+            prof = q["doc"].get("profile", {})
+            out["query"][mode] = {
+                "kernel": prof.get("kernel"), "cache": q["doc"]["cache"],
+                "took_ms": q["doc"]["tookMs"],
+                "phases_ms": prof.get("phases"),
+                "cli_wall_s": out["wall_s"][f"query_{mode}"]}
+        want_dev = str(server.ingest.device)
+        if not (out["query"]["rows_equal"]
+                and out["query"]["equal_get_query"]
+                and out["query"]["numpy"]["kernel"] == "numpy"
+                and out["query"]["torch"]["kernel"] == "torch"
+                and out["query"]["numpy"]["cache"] == "miss"
+                and out["query"]["torch"]["cache"] == "miss"
+                and out["query"]["torch_reductions"] >= 1
+                and out["query"]["numpy_reductions_on_torch"] == 0
+                and out["query"]["torch_reduction_devices"] == [want_dev]
+                and out["query"]["engine_device"] == want_dev):
+            raise AssertionError(f"theia query: {out['query']}")
+        out["probes"].append(cli_probe(port, *argv))
+
+        # the operator's views: exit 0 with their tables
+        text = run("top", "top", "-n", "2", "-i", "0.5", "--no-clear")
+        checks = {"top": text.count("METRIC") == 2}
+        text = run("alerts", "alerts")
+        checks["alerts"] = bool(text.strip())
+        trace_id = out["query"]["trace_id"]
+        text = run("trace", "trace", trace_id)
+        checks["trace"] = f"trace {trace_id}" in text
+        text = run("clickhouse_status", "clickhouse", "status",
+                   "--tableInfo")
+        checks["clickhouse_status"] = any(
+            line.split()[2:4] == ["flows", str(total_rows(port))]
+            for line in text.splitlines() if len(line.split()) > 3)
+        out["views"] = checks
+        if not all(checks.values()):
+            raise AssertionError(f"theia top/alerts/trace/clickhouse: "
+                                 f"{checks}")
+
+        # profile while ingest children post one after another
+        profiled = threading.Event()
+        fed: list = []
+        errors: list = []
+
+        def feed():
+            try:
+                while not profiled.is_set():
+                    fed.append(cli_child(
+                        port, "ingest", "--stream",
+                        f"cli-profile-{len(fed)}", "--batches",
+                        str(CLI_PROFILE_BATCHES), "--series",
+                        str(CLI_SERIES), "--points", str(CLI_POINTS)))
+            except BaseException as e:   # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        rows0 = total_rows(port)
+        feeder = threading.Thread(target=feed, name="cli-profile-feeder")
+        feeder.start()
+        try:
+            wait_for(lambda: total_rows(port) > rows0
+                     or not feeder.is_alive(), CLI_TIMEOUT_S,
+                     "the profiled ingest's first block")
+            path = os.path.join(tmp, "profile.tar.gz")
+            text = run("profile", "profile", "-d", str(CLI_PROFILE_S),
+                       "-f", path)
+        finally:
+            profiled.set()
+            feeder.join()
+        if errors:
+            raise errors[0]
+        names, kernels, categories = trace_kernel_events(path)
+        out["profile"] = {
+            "printed": text.strip(), "members": names,
+            "kernel_events": len(kernels), "categories": categories,
+            "kernel_names": sorted({ev.get("name", "")[:60]
+                                    for ev in kernels})[:8],
+            "bytes": os.path.getsize(path), "ingest_children": len(fed),
+            "ingest_rows": total_rows(port) - rows0}
+        if names != ["trace.json"] or "torch.profiler" not in text \
+                or (on_card and not kernels):
+            raise AssertionError(f"theia profile: {out['profile']}")
+    if on_card:
+        out["card"] = watch.doc(0, out["probes"][0]["free_before"])
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def check_cli(got: dict) -> None:
+    """No CLI child loaded torch or jax or the reference package, and on
+    the card none opened a CUDA context: nvidia-smi lists no more
+    processes during the phase than before it, and the card's free
+    memory did not drop while a probe ran."""
+    for probe in got["probes"]:
+        if probe["exit"] != 0 or probe["loaded"]:
+            raise AssertionError(f"CLI probe: {probe}")
+        if probe["free_before"] is not None and (
+                probe["free_before"] - probe["min_free_during"]
+                > CLI_FREE_SLACK):
+            raise AssertionError(f"the card's free memory dropped while "
+                                 f"a CLI child ran: {probe}")
+    card = got.get("card")
+    if card and card["processes_max"] > card["processes_before"]:
+        raise AssertionError(f"a process joined the card during the CLI "
+                             f"phase: {card}")
 
 
 def start_child(tmp: str, device, log) -> subprocess.Popen:
@@ -3514,11 +3879,14 @@ def main() -> int:
                                         snapshot, kept)
         jobs = manager_tad.pop("manager_jobs")
         jobs_parity = manager_tad.pop("jobs_parity")
+        cli = manager_tad.pop("cli")
         emit("manager_tad", **manager_tad)
         emit("manager_jobs", **jobs)
         emit("jobs_parity", dd_rtol=DD_RTOL, eps_band=EPS_BAND,
              **jobs_parity)
         check_jobs_parity(jobs_parity)
+        emit("cli", free_slack=CLI_FREE_SLACK, **cli)
+        check_cli(cli)
         # The scale-out slice: the same jobs sharded over a mesh of
         # logical shards of the card, against their one-device runs.
         multi = phase_multi_device(flows, *kept["sad-points"], device)
@@ -3550,6 +3918,8 @@ def main() -> int:
         launches=manager["b1_launches"],
         launches_by_path={"main_path": main["b1_launches"],
                           "manager_path": manager["b1_launches"],
+                          # `theia ingest`'s blocks (cli phase)
+                          "cli": cli["ingest"]["b1_launches"],
                           "state_tier": tier["tiered"]["b1_launches"],
                           # fused steps of each cluster node (one
                           # grouped B1 launch a step), read from its
@@ -3565,6 +3935,8 @@ def main() -> int:
         launches_by_path={
             "tad_path": tad["algos"]["DBSCAN"]["b2_launches"],
             "manager_tad": manager_tad["jobs"]["DBSCAN"]["b2_launches"],
+            # `theia tad run --algo DBSCAN --wait` (cli phase)
+            "cli": cli["tad"]["b2_launches"],
             # counted in the DBSCAN job's runner child, read from the
             # stderr line the controller kept
             "manager_subprocess": sub["jobs"]["tad-DBSCAN"][

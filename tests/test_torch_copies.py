@@ -49,7 +49,6 @@ COPIES = (
     "store/sharded.py",
     "store/replicated.py",
     "store/__init__.py",
-    "query/engine.py",
     "query/plan.py",
     "query/reference.py",
     "query/result.py",
@@ -84,6 +83,8 @@ COPIES = (
     "analysis/base.py",
     "analysis/lint.py",
     "analysis/lockgraph.py",
+    "cli/__init__.py",
+    "cli/portforward.py",
 )
 
 #: derived module → {unit that may differ: why}. A unit is a top-level
@@ -110,15 +111,37 @@ DERIVED = {
                     "state's device",
     },
     "query/kernels.py": {
-        "logger": "left out: only the JAX branch logs (ROADMAP A15)",
-        "_jax_state_lock": "left out: JAX branch, ROADMAP A15",
-        "_jax_disabled_reason": "left out: JAX branch, ROADMAP A15",
-        "_jax_fns": "left out: JAX branch, ROADMAP A15",
-        "kernel_mode": "always numpy (the JAX branch is ROADMAP A15)",
-        "aggregate": "no JAX branch",
-        "_disable_jax": "left out: JAX branch, ROADMAP A15",
-        "_reduce_jax": "left out: JAX branch, ROADMAP A15",
-        "_jax_segment_reduce": "left out: JAX branch, ROADMAP A15",
+        "logger": "left out: no fallback, so nothing logs",
+        "_jax_state_lock": "left out: no fallback; a failure in the "
+                           "torch branch raises",
+        "_jax_disabled_reason": "left out: no fallback",
+        "_disable_jax": "left out: no fallback",
+        "_jax_fns": "left out: torch ops run eagerly, no jit cache",
+        "_reduce_jax": "left out: _reduce_torch takes its place",
+        "_jax_segment_reduce": "left out: _reduce_torch takes its place",
+        "_reduce_torch": "bincount, index_add_ and scatter_reduce_ in "
+                         "int64 on the engine's device, in _reduce_jax's "
+                         "place",
+        "kernel_mode": "THEIA_QUERY_JAX=1 answers 'torch'; auto answers "
+                       "numpy (the reference's answer without x64)",
+        "aggregate": "takes device=; the torch branch raises where the "
+                     "JAX branch fell back to numpy",
+        "merge_partials": "takes device= for aggregate",
+    },
+    "query/engine.py": {
+        "QueryEngine.__init__": "takes device=, where the torch branch "
+                                "of kernels.aggregate runs",
+        "QueryEngine._parts_partials": "passes device= to the kernels",
+        "QueryEngine._fold_stripe": "passes device= to the kernels",
+        "QueryEngine._encoded_partial": "passes device= to the kernels",
+        "QueryEngine._decoded_partial": "passes device= to the kernels",
+    },
+    "cli/__main__.py": {
+        "profile": "the manager's capture is a torch.profiler "
+                   "trace.json, viewed in Perfetto or chrome://tracing, "
+                   "where the reference's is an XLA trace for "
+                   "TensorBoard/xprof",
+        "build_parser": "the profile subcommand's help says the same",
     },
     "manager/ingest.py": {
         "resolve_auto_engine": "auto resolves on the manager's torch "
@@ -158,12 +181,9 @@ DERIVED = {
     "analysis/waivers.py": {
         "WAIVERS": "the reference's waivers at the port's paths, "
                    "invariants unchanged; left out, as the gate fails "
-                   "a waiver that matches nothing: the CLI's "
-                   "swallowed-except:cli/__main__.py:_urlopen and "
-                   "swallowed-except:cli/__main__.py:main (ROADMAP "
-                   "A21), and swallowed-except:manager/stats.py:"
-                   "device_infos, whose torch rewrite probes "
-                   "torch.cuda without a try",
+                   "a waiver that matches nothing: swallowed-except:"
+                   "manager/stats.py:device_infos, whose torch rewrite "
+                   "probes torch.cuda without a try",
     },
     "analytics/npr.py": {
         "read_distinct_flows": "takes device= for the port's "
@@ -211,7 +231,8 @@ DERIVED = {
     },
     "manager/api.py": {
         "TheiaManagerServer.__init__": "takes device= for ingest, "
-                                       "jobs, stats and profiles",
+                                       "jobs, stats, profiles and "
+                                       "queries",
     },
     "manager/stats.py": {
         "StatsProvider.__init__": "takes device=",

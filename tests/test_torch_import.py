@@ -22,7 +22,8 @@ PORT_FILES = sorted((REPO / "theia_tpu_torch").rglob("*.py")) + [
 #: NPR, pattern-mining, spatial and drop-detection jobs; from the
 #: control-plane slice on, the job runner, the reconciler, the
 #: dashboards and the static analysis passes; from the scale-out slice
-#: on, the multi-device job paths and the cluster tier
+#: on, the multi-device job paths and the cluster tier; from the CLI
+#: slice on, the `theia` CLI
 SLICE_MODULES = (
     "theia_tpu_torch.ops.fused_detector",
     "theia_tpu_torch.ops.dbscan",
@@ -64,6 +65,9 @@ SLICE_MODULES = (
     "theia_tpu_torch.cluster.node",
     "theia_tpu_torch.cluster.replication",
     "theia_tpu_torch.cluster.router",
+    "theia_tpu_torch.cli",
+    "theia_tpu_torch.cli.__main__",
+    "theia_tpu_torch.cli.portforward",
 )
 
 _PROBE = """

@@ -8,9 +8,10 @@ requests.
   wall-clock stamps; heavy-hitter floats within rtol 1e-5, as in
   tests/test_torch_manager_ingest.py), `/healthz` (engine block),
   `/metrics` and the `deviceInfo` stats component.
-- `python -m theia_tpu.cli tad run --wait` (the reference's CLI,
-  JAX-free, over HTTP) for EWMA and DBSCAN against both servers: the
-  result rows are equal apart from the job id, with
+- `python -m theia_tpu_torch.cli tad run --wait` (the port's CLI) for
+  EWMA and DBSCAN against both servers, and the reference's `python -m
+  theia_tpu.cli` (JAX-free, over HTTP) as the wire-compatibility case:
+  the result rows are equal apart from the job id, with
   throughputStandardDeviation within rtol 2e-15 (a float64 sum over T
   in another order, tests/test_torch_tad.py).
 - NPR, pattern-mining, spatial and drop-detection jobs created with
@@ -138,11 +139,16 @@ def _assert_same_alerts(ref_ring, port_ring):
                                        rtol=HH_RTOL)
 
 
-def _cli(srv, *args) -> subprocess.Popen:
-    """The reference's `theia` CLI against `srv`, started."""
+#: the port's `theia` CLI, and the reference's as the
+#: wire-compatibility case
+CLIS = ("theia_tpu_torch.cli", "theia_tpu.cli")
+
+
+def _cli(cli, srv, *args) -> subprocess.Popen:
+    """The `theia` CLI of package `cli` against `srv`, started."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     return subprocess.Popen(
-        [sys.executable, "-m", "theia_tpu.cli", "--manager-addr",
+        [sys.executable, "-m", cli, "--manager-addr",
          f"http://127.0.0.1:{srv.port}", *args],
         cwd=REPO, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
@@ -179,7 +185,8 @@ def pair(tmp_path):
     _stop(ref, ref_db)
 
 
-def test_http_surface_and_tad_jobs_match_reference(pair, tmp_path):
+@pytest.mark.parametrize("cli", CLIS)
+def test_http_surface_and_tad_jobs_match_reference(cli, pair, tmp_path):
     ref, port = pair
     blocks = _blocks()
     for seq, blk in enumerate(blocks):
@@ -216,7 +223,8 @@ def test_http_surface_and_tad_jobs_match_reference(pair, tmp_path):
         health_p["ingest"]["rowsIngested"]
 
     # `tad run --wait` polls every 5 s: the four jobs go in parallel
-    runs = {(algo, name): _cli(srv, "tad", "run", "--algo", algo, "--wait")
+    runs = {(algo, name): _cli(cli, srv, "tad", "run", "--algo", algo,
+                               "--wait")
             for algo in ("EWMA", "DBSCAN")
             for name, srv in (("ref", ref), ("port", port))}
     for (algo, name), proc in runs.items():
@@ -224,7 +232,7 @@ def test_http_surface_and_tad_jobs_match_reference(pair, tmp_path):
         assert "No anomalies found" not in out, (algo, name)
         job = out.split("name: ", 1)[1].split()[0]
         srv = port if name == "port" else ref
-        _finish(_cli(srv, "tad", "retrieve", job, "-f",
+        _finish(_cli(cli, srv, "tad", "retrieve", job, "-f",
                      str(tmp_path / f"{name}-{algo}.json")))
     for algo in ("EWMA", "DBSCAN"):
         got = _tad_rows(tmp_path / f"port-{algo}.json")

@@ -12,11 +12,13 @@ import time
 import types
 
 import jax
+import pytest
 import torch
 
-from theia_tpu.cli.__main__ import main as cli_main
+from theia_tpu.cli.__main__ import main as ref_cli_main
 from theia_tpu.manager.stats import StatsProvider as RefStats
 from theia_tpu.store import FlowDatabase as RefDatabase
+from theia_tpu_torch.cli.__main__ import main as port_cli_main
 from theia_tpu_torch.manager import TheiaManagerServer
 from theia_tpu_torch.manager.profiling import ProfileManager
 from theia_tpu_torch.manager.stats import StatsProvider
@@ -79,9 +81,12 @@ def test_profile_capture_is_a_chrome_trace():
     assert "traceEvents" in trace
 
 
-def test_profile_cli_against_a_port_manager(tmp_path, capsys):
-    """The reference's `theia profile` (JAX-free, over HTTP) drives the
-    port manager's capture end to end."""
+@pytest.mark.parametrize("cli_main", (port_cli_main, ref_cli_main),
+                         ids=("port-cli", "reference-cli"))
+def test_profile_cli_against_a_port_manager(cli_main, tmp_path, capsys):
+    """`theia profile` drives the port manager's capture end to end:
+    the port's CLI, and the reference's (JAX-free, over HTTP) as the
+    wire-compatibility case."""
     srv = TheiaManagerServer(FlowDatabase(), port=0, ingest_shards=1,
                              device="cpu")
     srv.start_background()

@@ -10,9 +10,10 @@ a fault-hung real child killed at its deadline) and of
 tests/test_pattern_spatial_jobs.py, plus the `runner.spawn` fault
 site. Then the port's own: subprocess and thread dispatch give equal
 rows for every job kind; the child's argv names the controller's
-device; and `theia tad|pr|fpm|sad|dd` through the reference's
-JAX-free CLI returns the same rows from a port manager under
-`--dispatch subprocess` as from a reference manager. Stores stay at
+device; and `theia tad|pr|fpm|sad|dd` through the port's CLI (and
+the reference's JAX-free CLI, as the wire-compatibility case) returns
+the same rows from a port manager under `--dispatch subprocess` as
+from a reference manager. Stores stay at
 the reference tests' sizes (8 series x 20 points): each child imports
 torch.
 """
@@ -454,12 +455,17 @@ RESOURCES = {"tad": "throughputanomalydetectors",
 GROUP = "/apis/intelligence.theia.antrea.io/v1alpha1"
 
 
-def _cli(port: int, *args) -> str:
-    """The reference's `theia` CLI (JAX-free) against the manager on
+#: the port's `theia` CLI, and the reference's (JAX-free) as the
+#: wire-compatibility case
+CLIS = ("theia_tpu_torch.cli", "theia_tpu.cli")
+
+
+def _cli(cli: str, port: int, *args) -> str:
+    """The `theia` CLI of package `cli` against the manager on
     `port`."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run(
-        [sys.executable, "-m", "theia_tpu.cli", "--manager-addr",
+        [sys.executable, "-m", cli, "--manager-addr",
          f"http://127.0.0.1:{port}", *args],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -526,20 +532,21 @@ def managers():
     ref.shutdown()
 
 
+@pytest.mark.parametrize("cli", CLIS)
 @pytest.mark.parametrize("verb", sorted(CLI_JOBS))
-def test_cli_rows_from_subprocess_port_equal_reference(verb, managers,
+def test_cli_rows_from_subprocess_port_equal_reference(verb, cli, managers,
                                                        tmp_path):
     """`theia <verb> run`, then `retrieve -f` once the job completed,
-    through the reference's CLI: the port manager, each job in a
+    through the CLI of package `cli`: the port manager, each job in a
     runner child, returns the reference manager's rows."""
     ref, port = managers
     rows = {}
     for label, srv in (("ref", ref), ("port", port)):
-        out = _cli(srv.port, verb, "run", *CLI_JOBS[verb])
+        out = _cli(cli, srv.port, verb, "run", *CLI_JOBS[verb])
         name = re.search(rf"{verb}-[0-9a-f-]{{36}}", out).group(0)
         _wait_done(srv.port, verb, name)
         path = tmp_path / f"{label}.out"
-        _cli(srv.port, verb, "retrieve", name, "-f", str(path))
+        _cli(cli, srv.port, verb, "retrieve", name, "-f", str(path))
         rows[label] = _cli_rows(path, verb)
     got, want = rows["port"], rows["ref"]
     assert want and want != [("", ())], verb

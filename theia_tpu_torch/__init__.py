@@ -12,9 +12,11 @@ Ported so far: the live ingest-and-score path (TBLK decode →
 ingest-global key remap → per-shard detectors: EWMA/Welford
 per-connection scan, Count-Min-Sketch heavy hitters, online k-means →
 the alert ring), the batch jobs (TAD, NPR, pattern mining, spatial
-and drop detection), and the manager that serves them (`python -m
+and drop detection), the manager that serves them (`python -m
 theia_tpu_torch.manager`: POST /ingest through admission, dedup, the
-WAL and the parts store; every job kind through the API). Every TPU
+WAL and the parts store; every job kind through the API; /query with
+its torch segment reductions under THEIA_QUERY_JAX=1), and the `theia`
+CLI (`python -m theia_tpu_torch.cli`, which loads no torch). Every TPU
 kernel on those paths is a CUDA C++ kernel under `csrc/`, built with
 nvcc at first use (`ops/_build.py`); the rest of their device work is
 torch ops.

@@ -1417,7 +1417,7 @@ class TheiaManagerServer:
         # (part-native on the parts engine, reference executor on
         # flat) behind GET/POST /query.
         from ..query import QueryEngine
-        self.queries = QueryEngine(db)
+        self.queries = QueryEngine(db, device=device)
         self.bundles = SupportBundleManager(self.controller, self.stats,
                                             ingest=self.ingest)
         from .profiling import ProfileManager

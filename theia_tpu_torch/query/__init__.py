@@ -3,8 +3,8 @@
 `plan.py` parses/normalizes queries, `engine.py` executes them
 part-natively (pruned, encoded-space filters, late-materializing
 group-by, bounded-pool parallelism, cold streaming, result cache),
-`kernels.py` holds the aggregation kernels (numpy reduceat / jitted
-jnp segment reductions), `reference.py` is the slow-but-correct
+`kernels.py` holds the aggregation kernels (numpy reduceat / int64
+torch segment reductions on the engine's device), `reference.py` is the slow-but-correct
 oracle the whole path is gated against, `distributed.py` is the
 cluster scatter-gather tier (coordinator fan-out over
 `/query/partial`, mergeable TQPF partial frames, peer pruning,

@@ -31,14 +31,14 @@ materialized copy:
      part's LOCAL code space (u1/u2 indices); only the SURVIVING
      groups map local → global codes (strings) or `+ base`
      (numerics). Aggregation itself is query/kernels.py — lexsort +
-     reduceat, or one jitted `jnp` segment-reduction dispatch
-     (`THEIA_QUERY_JAX`, the THEIA_FUSED_PALLAS auto/fallback
-     discipline). When the plan's groupBy is a PREFIX of the part's
-     sort key, the part's rows are already key-clustered (local
-     indices and width-reduced ints are monotone in the decoded
-     values) and the kernel skips its lexsort entirely — group
-     boundaries come from one adjacent-row comparison over
-     contiguous runs, bit-identical output.
+     reduceat, or int64 torch segment reductions on the engine's
+     device (`THEIA_QUERY_JAX=1`; no fallback to numpy). When the
+     plan's groupBy is a PREFIX of the part's sort key, the part's
+     rows are already key-clustered (local indices and width-reduced
+     ints are monotone in the decoded values) and the kernel skips
+     its lexsort entirely — group boundaries come from one
+     adjacent-row comparison over contiguous runs, bit-identical
+     output.
   4. **Parallel per-part execution.** Live parts are striped across a
      bounded pool (`THEIA_QUERY_WORKERS`); each worker folds its
      parts into ONE per-worker partial accumulator, and the partials
@@ -377,8 +377,12 @@ class QueryEngine:
     def __init__(self, db,
                  workers: Optional[int] = None,
                  cache_bytes: Optional[int] = None,
-                 cold_buffer: Optional[int] = None) -> None:
+                 cold_buffer: Optional[int] = None,
+                 device=None) -> None:
         self.db = db
+        # where kernels.aggregate runs under THEIA_QUERY_JAX=1; None is
+        # the card, resolved only when the torch branch runs
+        self.device = device
         self.workers = max(1, (
             env_int("THEIA_QUERY_WORKERS", DEFAULT_WORKERS)
             if workers is None else int(workers)))
@@ -890,7 +894,8 @@ class QueryEngine:
         stats["partsScanned"] += len(live)
         stats["partsPruned"] += pruned
         merged = kernels.merge_partials(
-            [p for p in partials if p is not None], specs)
+            [p for p in partials if p is not None], specs,
+            device=self.device)
         return merged if len(merged[0]) else None
 
     def _fold_stripe(self, plan, table, specs, filters,
@@ -905,7 +910,8 @@ class QueryEngine:
         partials = [p for p in partials if p is not None]
         if not partials:
             return None
-        return kernels.merge_partials(partials, specs)
+        return kernels.merge_partials(partials, specs,
+                                      device=self.device)
 
     # -- per-part evaluation -----------------------------------------------
 
@@ -1032,7 +1038,8 @@ class QueryEngine:
                 arr += chunk.base
             values[column] = arr
         uniq, aggs = kernels.aggregate(keys, values, specs,
-                                       presorted=bool(presorted))
+                                       presorted=bool(presorted),
+                                       device=self.device)
         # late materialization: widen only surviving group keys
         for j, (kind, aux) in enumerate(widen):
             if kind == "uniq":
@@ -1084,7 +1091,7 @@ class QueryEngine:
             keys = np.zeros((int(mask.sum()), 0), np.int64)
         values = {c: np.asarray(batch[c], np.int64)[mask]
                   for c in value_columns(specs)}
-        return kernels.aggregate(keys, values, specs)
+        return kernels.aggregate(keys, values, specs, device=self.device)
 
 
 # -- cross-store merge (sharded stores, cluster partials) ------------------
