@@ -37,7 +37,6 @@ COPIES = (
     "utils/backoff.py",
     "utils/pool.py",
     "utils/validation.py",
-    "obs/trace.py",
     "obs/prom.py",
     "obs/history.py",
     "obs/rules.py",
@@ -60,7 +59,6 @@ COPIES = (
     "manager/collect.py",
     "manager/certs.py",
     "manager/__init__.py",
-    "runner/progress.py",
     "ingest/client.py",
     "ingest/__init__.py",
     "utils/__init__.py",
@@ -94,6 +92,40 @@ COPIES = (
 #: whose reason starts with "left out" must be missing from the port;
 #: any other listed unit may differ or be missing.
 DERIVED = {
+    "obs/trace.py": {
+        "CAPTURE_CAP": "the most span records one profile capture keeps",
+        "SPAN_CATEGORY": "the Chrome trace category of exported spans",
+        "Capture": "the span records of one profile capture",
+        "Capture.__init__": "as Capture",
+        "_capture": "the running capture",
+        "Span.__exit__": "the record carries `tid`, the thread's native "
+                         "id, as the profiler's CUDA runtime events do",
+        "_publish": "also appends to the running capture, to its cap",
+        "start_capture": "starts a capture (manager/profiling.py)",
+        "stop_capture": "ends it",
+        "record": "through record_in, under the innermost open span",
+        "record_in": "record()'s body, with the parent span given (it "
+                     "may have closed) and `tid` in the record",
+        "chrome_events": "span records as Chrome trace events on a "
+                         "profile's clock",
+        "current_span": "the innermost open span, the parent of a "
+                        "job stage's record",
+        "thread_rows": "the row of each thread's CUDA runtime calls in a "
+                       "profile's trace, for the exported spans",
+        "spans_for_trace": "also the spans that link the trace (a fused "
+                           "step serving several requests)",
+        "traced": "left out: nothing in the port called the decorator",
+    },
+    "runner/progress.py": {
+        "JobProgress.__init__": "takes the job's kind and name for the "
+                                "attrs of its stage spans",
+        "JobProgress.stage": "starts the stage's clock, publishing the "
+                             "previous stage's `job.stage` record",
+        "JobProgress.done": "publishes the last stage's record",
+        "JobProgress.fail": "publishes the last stage's record, with "
+                            "the error",
+        "JobProgress._end_stage": "publishes the open stage's record",
+    },
     "analytics/streaming.py": {
         "StreamState": "fields annotated as torch tensors",
         "init_state": "allocates torch tensors on the given device",
@@ -154,6 +186,8 @@ DERIVED = {
                                         "controller's device",
         "JobController._runner_cmd": "the port's runner, with --device "
                                      "the controller's resolved device",
+        "JobController._run": "the alert push is a `job.alert_push` "
+                              "span",
     },
     "runner/__main__.py": {
         "_add_common_job_flags": "--device (default cuda), the torch "
@@ -242,7 +276,14 @@ DERIVED = {
     "manager/profiling.py": {
         "ProfileManager.__init__": "takes device=",
         "ProfileManager._collect": "torch.profiler in place of "
-                                   "jax.profiler",
+                                   "jax.profiler; the spans of the "
+                                   "capture go into its trace.json",
+        "CAPTURE_MARK": "the marker that ties the spans' clock to the "
+                        "trace's",
+        "MARK_TOLERANCE_US": "how far the marker's offset may differ "
+                             "from baseTimeNanoseconds' unlogged",
+        "_mark": "opens the marker",
+        "add_spans": "puts the capture's spans into trace.json",
     },
     "manager/__main__.py": {
         "main": "--device in place of JAX_PLATFORMS",

@@ -293,7 +293,12 @@ def test_sad_switches_tf32_off_in_a_fresh_process(db_path, tmp_path):
 
 def test_stderr_ends_with_the_device_line(db_path, capsys):
     """After the timing lines: the device, and no kernel launch on the
-    CPU (a CPU tensor runs the plain versions, which do not count)."""
+    CPU (a CPU tensor runs the plain versions, which do not count). The
+    timing lines are the process's span exemplars by name, so another
+    test's spans (`sad.*` sort after `runner.job`) are cleared first,
+    as a runner child starts without them."""
+    from theia_tpu_torch.obs import trace
+    trace.reset()
     main(["tad", "--db", db_path, "--algo", "DBSCAN", "--id", "job-d",
           *CPU])
     err = capsys.readouterr().err.strip().splitlines()

@@ -277,3 +277,347 @@ def test_heartbeat_rtt_recorded_and_surfaced(monkeypatch):
         assert h.labels(peer="n1").count() >= 1
     finally:
         shutdown_all(servers)
+
+
+# -- spans in a profile capture, and the job path's spans -------------------
+
+def _capture_case(case, monkeypatch):
+    """Publish a few spans under one of the switches; the records the
+    capture kept and the capture."""
+    import collections
+    cap = {"cap": 3}.get(case, trace.CAPTURE_CAP)
+    if case == "ring_zero":
+        monkeypatch.setattr(trace, "_ring", collections.deque(maxlen=0))
+    if case == "disabled":
+        metrics.disable()
+    capture = trace.start_capture(cap)
+    if case == "off":
+        trace.stop_capture(capture)
+    try:
+        if case == "unsampled":
+            monkeypatch.setenv("THEIA_TRACE_SAMPLE", "0")
+            with trace.ingress_span("job.run"):
+                for i in range(5):
+                    with trace.span("inner", i=i):
+                        pass
+        else:
+            for i in range(5):
+                with trace.span("inner", i=i):
+                    pass
+    finally:
+        trace.stop_capture(capture)
+    return capture
+
+
+@pytest.mark.parametrize("case, kept, dropped", [
+    ("on", 5, 0), ("off", 0, 0), ("cap", 3, 2), ("ring_zero", 0, 0),
+    ("unsampled", 0, 0), ("disabled", 0, 0)])
+def test_capture_sink_keeps_what_the_ring_keeps(case, kept, dropped,
+                                                monkeypatch):
+    """A running capture keeps each record the ring takes, up to its
+    cap, counting the rest; with no capture, THEIA_TRACE_RING=0, an
+    unsampled trace or metrics disabled it keeps nothing."""
+    capture = _capture_case(case, monkeypatch)
+    assert [r["i"] for r in capture.records] == list(range(kept))
+    assert capture.dropped == dropped
+    with trace.span("after"):
+        pass
+    assert all(r["op"] == "inner" for r in capture.records)
+
+
+def test_records_carry_the_native_thread_id():
+    import threading
+    got = {}
+
+    def work():
+        with trace.span("in.thread"):
+            pass
+        trace.record("recorded", 0.0, 0.001)
+        got["tid"] = threading.get_native_id()
+
+    th = threading.Thread(target=work)
+    th.start()
+    th.join()
+    recs = {r["op"]: r for r in trace.recent()}
+    assert recs["in.thread"]["tid"] == got["tid"]
+    assert recs["recorded"]["tid"] == got["tid"]
+    assert got["tid"] != threading.get_native_id()
+
+
+@pytest.mark.parametrize("scheme", ["native", "ident", "abs", "neither"])
+def test_thread_rows_follow_the_runtime_events_ids(scheme):
+    """An exported span goes on the row of its thread's CUDA runtime
+    calls, whichever of the thread's ids the trace gives them: the
+    native id, or CUPTI's (the ident cut to 32 bits, as is or as the
+    absolute value of that signed number)."""
+    import threading
+    native = threading.get_native_id()
+    cut = threading.get_ident() & 0xFFFFFFFF
+    row = {"native": native, "ident": cut,
+           "abs": abs(cut - (1 << 32) if cut >> 31 else cut),
+           "neither": native}[scheme]
+    runtime = {3} if scheme == "neither" else {row, 3}
+    rows = trace.thread_rows(runtime)
+    assert rows[native] == row
+    recs = [{"op": "x", "startTime": 1.0, "durationMs": 1.0,
+             "tid": native}]
+    (ev,) = trace.chrome_events(recs, 0.0, 0.0, 2.0, pid=1, rows=rows)
+    assert ev["tid"] == rows[native]
+
+
+@pytest.mark.parametrize("case", ["sampled", "unsampled", "none"])
+def test_record_in_joins_the_trace_of_a_closed_parent(case, monkeypatch):
+    """record_in publishes a child of a span that has closed since, in
+    that span's trace; under an unsampled parent nothing, and with no
+    parent a record of no trace."""
+    if case == "unsampled":
+        monkeypatch.setenv("THEIA_TRACE_SAMPLE", "0")
+    parent = None
+    if case != "none":
+        with trace.ingress_span("parent") as parent:
+            pass
+    trace.record_in(parent, "child", 12.5, 0.002, rows=3)
+    got = [r for r in trace.recent() if r["op"] == "child"]
+    if case == "unsampled":
+        assert got == []
+        return
+    (rec,) = got
+    assert (rec["startTime"], rec["durationMs"], rec["rows"]) == \
+        (12.5, 2.0, 3)
+    if case == "none":
+        assert rec["parent"] is None and "traceId" not in rec
+    else:
+        assert rec["parent"] == "parent"
+        assert rec["traceId"] == parent.context.trace_id
+        assert rec["parentSpanId"] == parent.context.span_id
+        assert rec["spanId"] != parent.context.span_id
+
+
+def _profile_with_spans(records):
+    """A CPU capture of 0.6 s (manager/profiling.py) while `records`
+    (op, seconds from now, duration s) are published from this thread;
+    its trace.json as a dict."""
+    import io
+    import tarfile
+    import threading
+    import time
+    from theia_tpu_torch.manager.profiling import ProfileManager
+    pm = ProfileManager(device="cpu")
+    out = {}
+    th = threading.Thread(target=lambda: out.setdefault(
+        "tar", pm._collect(0.6)))
+    th.start()
+    import torch
+    deadline = time.time() + 30
+    while not torch.autograd.profiler._is_profiler_enabled \
+            and time.time() < deadline:
+        time.sleep(0.005)
+    time.sleep(0.05)           # past the capture's marker
+    now = time.time()
+    for op, at, dur in records:
+        trace.record(op, now + at, dur)
+    th.join(60)
+    with tarfile.open(fileobj=io.BytesIO(out["tar"]), mode="r:gz") as tar:
+        return json.load(tar.extractfile("trace.json"))
+
+
+def test_capture_puts_spans_on_the_traces_clock():
+    """Two spans 0.2 s apart land 200,000 µs apart as theia_span
+    events; spans that start before the capture or end after it are
+    left out; the marker that tied the clocks is gone from the trace."""
+    import threading
+    from theia_tpu_torch.manager.profiling import CAPTURE_MARK
+    doc = _profile_with_spans([("a", 0.0, 0.01), ("b", 0.2, 0.03),
+                               ("before", -30.0, 0.01),
+                               ("after", 0.1, 5.0)])
+    spans = {e["name"]: e for e in doc["traceEvents"]
+             if e.get("cat") == trace.SPAN_CATEGORY}
+    assert set(spans) == {"a", "b"}
+    assert spans["b"]["ts"] - spans["a"]["ts"] == pytest.approx(2e5,
+                                                               abs=1.0)
+    assert spans["b"]["dur"] == pytest.approx(3e4, abs=0.5)
+    assert spans["a"]["ph"] == "X"
+    assert spans["a"]["tid"] == threading.get_native_id()
+    assert not any(e.get("name") == CAPTURE_MARK
+                   for e in doc["traceEvents"])
+    info = doc["theiaSpans"]
+    assert info["exported"] == 2 and info["dropped"] == 0
+    # the marker's offset agrees with the trace's own epoch
+    assert abs(info["baseOffsetErrorUs"]) < 20_000
+    # the spans lie among the profiler's own events
+    host = [e["ts"] for e in doc["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") != trace.SPAN_CATEGORY]
+    assert min(host) <= spans["a"]["ts"]
+    assert trace._capture is None
+
+
+def test_chrome_events_of_records():
+    recs = [{"op": "x", "startTime": 100.0, "durationMs": 500.0,
+             "tid": 7, "traceId": "t", "spanId": "s", "rows": 2},
+            {"op": "y", "startTime": 99.9, "durationMs": 1.0, "tid": 7},
+            {"op": "z", "startTime": 100.6, "durationMs": 500.0,
+             "tid": 7}]
+    got = trace.chrome_events(recs, -100e6, 100.0, 101.0, pid=5)
+    assert got == [{"ph": "X", "cat": "theia_span", "name": "x",
+                    "pid": 5, "tid": 7, "ts": 0.0, "dur": 500000.0,
+                    "args": {"traceId": "t", "spanId": "s", "rows": 2}}]
+
+
+def _job_db():
+    from test_torch_subprocess_dispatch import _drop_rows, _flows
+    db = FlowDatabase()
+    db.insert_flows(_flows(seed=3))
+    db.insert_flow_rows(_drop_rows())
+    return db
+
+
+def _run_jobs(jobs, alert_sink=None):
+    """Run (kind, spec) jobs one after another in process on the CPU;
+    the records and every span finished meanwhile, oldest first."""
+    from theia_tpu_torch.manager.jobs import JobController
+    ctl = JobController(_job_db(), workers=1, device="cpu",
+                        alert_sink=alert_sink)
+    capture = trace.start_capture()
+    try:
+        records = []
+        for kind, spec in jobs:
+            records.append(ctl.create(kind, spec))
+            assert ctl.wait_all(timeout=120)
+    finally:
+        trace.stop_capture(capture)
+        ctl.shutdown()
+    return records, capture.records
+
+
+def _job_kinds():
+    from theia_tpu_torch.runner import progress
+    from theia_tpu_torch.manager import jobs
+    return {"tad": (jobs.KIND_TAD, {"jobType": "EWMA"},
+                    progress.TAD_STAGES),
+            "npr": (jobs.KIND_NPR, {"jobType": "initial"},
+                    progress.NPR_STAGES),
+            "fpm": (jobs.KIND_FPM, {"minSupport": 3},
+                    progress.FPM_STAGES),
+            "sad": (jobs.KIND_SPATIAL, {}, progress.SPATIAL_STAGES),
+            "dd": (jobs.KIND_DD, {"jobType": "initial"},
+                   progress.DD_STAGES)}
+
+
+@pytest.mark.parametrize("label", ["tad", "npr", "fpm", "sad", "dd"])
+def test_job_stages_are_spans_under_job_run(label):
+    """An in-process job of each kind: one `job.stage` span a stage, in
+    the kind's order, back to back, each a child of the job's
+    `job.run` span, with the job's kind and name."""
+    kind, spec, stages = _job_kinds()[label]
+    (record,), spans = _run_jobs([(kind, spec)])
+    assert record.state == "COMPLETED", record.error_msg
+    (run,) = [s for s in spans if s["op"] == "job.run"]
+    got = [s for s in spans if s["op"] == "job.stage"]
+    assert [s["stage"] for s in got] == stages
+    for s in got:
+        assert s["traceId"] == run["traceId"]
+        assert s["parentSpanId"] == run["spanId"]
+        assert s["parent"] == "job.run"
+        assert (s["kind"], s["job"]) == (kind, record.name)
+        assert s["tid"] == run["tid"]
+        assert run["startTime"] <= s["startTime"]
+        assert s["startTime"] + s["durationMs"] / 1e3 <= \
+            run["startTime"] + run["durationMs"] / 1e3 + 1e-3
+    for a, b in zip(got, got[1:]):
+        assert a["startTime"] <= b["startTime"]
+
+
+def test_sad_job_spans_its_passes_copies_and_alert_push():
+    from theia_tpu_torch.manager.jobs import KIND_SPATIAL
+    alerts = []
+    (record,), spans = _run_jobs([(KIND_SPATIAL, {})],
+                                 alert_sink=alerts.append)
+    assert record.state == "COMPLETED", record.error_msg
+    assert alerts
+    by_op = {}
+    for s in spans:
+        by_op.setdefault(s["op"], []).append(s)
+    (run,) = by_op["job.run"]
+    score = next(s for s in by_op["job.stage"] if s["stage"] == "score")
+    lo = score["startTime"]
+    hi = lo + score["durationMs"] / 1e3 + 1e-3
+    n = len(_job_db().flows.select(None, None))
+    for op in ("dbscan.count_pass", "dbscan.reach_pass"):
+        (sp,) = by_op[op]
+        assert sp["parentSpanId"] == run["spanId"]
+        assert (sp["points"], sp["block"]) == (-(-n // 1024) * 1024, 1024)
+        assert sp["rows"] == sp["points"]
+    for op in ("dbscan.count_pass", "dbscan.reach_pass", "sad.to_device",
+               "sad.fetch", "sad.decode"):
+        (sp,) = by_op[op]
+        assert sp["traceId"] == run["traceId"]
+        assert sp["parentSpanId"] == run["spanId"]
+        # inside the score stage
+        assert lo <= sp["startTime"]
+        assert sp["startTime"] + sp["durationMs"] / 1e3 <= hi
+    # the push publishes at most 100 of the job's noise flows
+    assert min(by_op["sad.decode"][0]["flows"], 100) == len(alerts)
+    (push,) = by_op["job.alert_push"]
+    assert push["job"] == record.name and "traceId" not in push
+    assert push["startTime"] >= run["startTime"] + run["durationMs"] / 1e3
+
+
+def test_raising_job_closes_its_stage_span_inside_job_run(monkeypatch):
+    """A job that raises in a stage publishes that stage's span, with
+    the error, under its job.run; no span is left open on the worker,
+    so the next job's job.run is again a trace root."""
+    from theia_tpu_torch.analytics import spatial
+    from theia_tpu_torch.manager.jobs import KIND_SPATIAL
+
+    def broken(flows):
+        raise RuntimeError("embedding failed")
+
+    monkeypatch.setattr(spatial, "flow_embeddings", broken)
+    (bad, good), spans = _run_jobs([(KIND_SPATIAL, {}),
+                                    (KIND_SPATIAL, {"eps": 2.0})])
+    assert bad.state == "FAILED" and "embedding failed" in bad.error_msg
+    assert good.state == "FAILED"
+    runs = [s for s in spans if s["op"] == "job.run"]
+    assert [r["job"] for r in runs] == [bad.name, good.name]
+    for run in runs:
+        assert run["parent"] is None and run["error"] == "RuntimeError"
+        stages = [s for s in spans if s["op"] == "job.stage"
+                  and s["traceId"] == run["traceId"]]
+        assert sorted(stages, key=lambda s: s["startTime"]) == stages
+        assert [s["stage"] for s in stages] == ["read", "embed"]
+        assert "embedding failed" in stages[-1]["error"]
+        assert "error" not in stages[0]
+        assert all(s["parentSpanId"] == run["spanId"] for s in stages)
+
+
+@pytest.mark.parametrize("sampled", [True, False])
+def test_fused_step_span_names_its_tiles_and_links(sampled, monkeypatch):
+    """A POST /ingest body through the fused engine on the CPU: one
+    fused.step span naming B1's tiles and linking the request's trace;
+    with the ingest ingress sampled at 0, no fused.step at all."""
+    import threading
+    from theia_tpu_torch.manager.ingest import IngestManager
+    if not sampled:
+        monkeypatch.setenv("THEIA_TRACE_SAMPLE_INGEST", "0")
+    enc = BlockEncoder()
+    flows = generate_flows(SynthConfig(n_series=40, points_per_series=4,
+                                       anomaly_fraction=0.0, seed=5),
+                           dicts=enc.dicts)
+    payload = enc.encode(flows)
+    im = IngestManager(FlowDatabase(), n_shards=2, engine="fused",
+                       device="cpu")
+    try:
+        out = im.ingest(payload, stream="s")
+    finally:
+        im.close()
+    steps = [s for s in trace.recent() if s["op"] == "fused.step"]
+    if not sampled:
+        assert "traceId" not in out and steps == []
+        return
+    (step,) = steps
+    assert step in trace.spans_for_trace(out["traceId"])
+    assert step["links"] == [out["traceId"]]
+    assert step["blocks"] == 1 and step["rows"] == len(flows)
+    assert step["device_ms"] is None
+    assert step["tiles"] and all(len(t) == 3 for t in step["tiles"])
+    assert step["tid"] != threading.get_native_id()

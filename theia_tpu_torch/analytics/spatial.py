@@ -18,7 +18,10 @@ Ports theia_tpu/analytics/spatial.py: the embedding is the reference's
 numpy code, verbatim; the pairwise pass runs on `device=` (default
 "cuda") through the port's `ops.dbscan.dbscan_points_noise`, or over
 a mesh (parallel.make_sharded_points_dbscan). Only `spatial_outliers`
-and `run_spatial` differ: they take `device=` for the one-device pass.
+and `run_spatial` differ: they take `device=` for the one-device pass,
+and `spatial_outliers` times its copy to the device, the result's fetch
+and the noise flows' decode as spans (`sad.to_device`, `sad.fetch`,
+`sad.decode`, obs/trace.py).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..obs import trace as _trace
 from ..ops.dbscan import dbscan_points_noise
 from ..schema import ColumnarBatch
 from ..utils.device import auto_mesh, resolve_device
@@ -102,23 +106,30 @@ def spatial_outliers(flows: ColumnarBatch,
         padded, _ = pad_to_multiple(emb, n_dev, axis=0)
         valid = np.zeros(len(padded), bool)
         valid[:n] = True
-        noise = make_sharded_points_dbscan(
+        flags = make_sharded_points_dbscan(
             mesh, eps=eps, min_samples=min_samples, block=block)(
-            padded, valid).cpu().numpy()[:n]
+            padded, valid)
+        with _trace.span("sad.fetch", rows=n):
+            noise = flags.cpu().numpy()[:n]
     else:
         dev = resolve_device(device)
-        noise = dbscan_points_noise(
-            torch.from_numpy(np.ascontiguousarray(emb)).to(dev),
-            torch.ones(n, dtype=torch.bool, device=dev), eps=eps,
-            min_samples=min_samples, block=block).cpu().numpy()
-    idx = np.nonzero(noise)[0]
-    src = flows.strings("sourceIP")
-    dst = flows.strings("destinationIP")
-    port = np.asarray(flows["destinationTransportPort"])
-    octets = np.asarray(flows["octetDeltaCount"])
-    return [{"sourceIP": str(src[i]), "destinationIP": str(dst[i]),
-             "destinationTransportPort": int(port[i]),
-             "octetDeltaCount": int(octets[i])} for i in idx]
+        with _trace.span("sad.to_device", rows=n):
+            points = torch.from_numpy(np.ascontiguousarray(emb)).to(dev)
+            valid = torch.ones(n, dtype=torch.bool, device=dev)
+        flags = dbscan_points_noise(points, valid, eps=eps,
+                                    min_samples=min_samples, block=block)
+        with _trace.span("sad.fetch", rows=n):
+            noise = flags.cpu().numpy()
+    with _trace.span("sad.decode") as sp:
+        idx = np.nonzero(noise)[0]
+        sp.attrs["flows"] = len(idx)
+        src = flows.strings("sourceIP")
+        dst = flows.strings("destinationIP")
+        port = np.asarray(flows["destinationTransportPort"])
+        octets = np.asarray(flows["octetDeltaCount"])
+        return [{"sourceIP": str(src[i]), "destinationIP": str(dst[i]),
+                 "destinationTransportPort": int(port[i]),
+                 "octetDeltaCount": int(octets[i])} for i in idx]
 
 
 def run_spatial(db,

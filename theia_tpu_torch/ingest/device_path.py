@@ -28,6 +28,12 @@ host-side slot mapping and tick bucketing are the same code
 order against the same eventually-consistent cross-shard totals — so
 a producer that awaits each ack (one block per step) gets the same
 alert stream from either engine.
+
+Each resolved step is one `fused.step` span (obs/trace.py) on the
+scorer thread: B1's stream tiles `(T, U, live)` a shard, the blocks and
+rows coalesced, the step's device time (CUDA events, ms; null on the
+CPU), and `links`, the trace ids of the sampled requests it scored; a
+step that served none is not recorded.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from ..analytics.streaming import (
     alert_record,
 )
 from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from ..ops import fused_detector as _ops
 from ..utils import get_logger
 from ..utils.env import env_float, env_int
@@ -161,16 +168,21 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 class _ScoreItem:
     """One request's remapped batch waiting for (or riding) a step."""
 
-    __slots__ = ("batch", "shard_rows", "future", "t_arrival", "rows")
+    __slots__ = ("batch", "shard_rows", "future", "t_arrival", "rows",
+                 "trace")
 
     def __init__(self, batch, shard_rows: Dict[int, Optional[np.ndarray]],
-                 t_arrival: float) -> None:
+                 t_arrival: float,
+                 trace: Optional[_trace.TraceContext] = None) -> None:
         self.batch = batch
         #: shard index -> row indices (None = every row of the batch)
         self.shard_rows = shard_rows
         self.future: Future = Future()
         self.t_arrival = t_arrival
         self.rows = len(batch)
+        #: the request's trace context where it is sampled (else None),
+        #: linked by its step
+        self.trace = trace
 
 
 class _ShardWork:
@@ -306,7 +318,8 @@ class FusedDetectorEngine:
                 if idx.size:
                     shard_rows[s] = (None if idx.size == len(scored)
                                      else idx)
-        item = _ScoreItem(scored, shard_rows, self.clock())
+        item = _ScoreItem(scored, shard_rows, self.clock(),
+                          _trace.current_context())
         try:
             self._queue.put(item, timeout=self.step_timeout)
         except _queue.Full:
@@ -535,11 +548,23 @@ class FusedDetectorEngine:
         items = step.items
         try:
             outs = self._fetch(step.outputs)
-            _M_STEP.observe(time.perf_counter() - step.t0)
+            dt = time.perf_counter() - step.t0
+            _M_STEP.observe(dt)
+            device_ms = None
             if step.events is not None:
                 step.events[1].synchronize()
-                self.device_ms.append(
-                    step.events[0].elapsed_time(step.events[1]))
+                device_ms = step.events[0].elapsed_time(step.events[1])
+                self.device_ms.append(device_ms)
+            links = [it.trace.trace_id for it in items
+                     if it.trace is not None]
+            if links and _metrics.enabled():
+                # only a step that served a sampled request is kept
+                _trace.record(
+                    "fused.step", time.time() - dt, dt,
+                    tiles=[(*w.splan.x.shape, len(w.splan.present))
+                           for w in step.work],
+                    blocks=len(items), rows=sum(it.rows for it in items),
+                    device_ms=device_ms, links=links)
             now = self.clock()
             per_hh: List[List] = [[] for _ in items]
             per_conn: List[List] = [[] for _ in items]

@@ -472,8 +472,11 @@ class JobController:
             if record.kind == KIND_SPATIAL and self.alert_sink:
                 try:
                     # best-effort side effect: a sink failure must not
-                    # flip a COMPLETED job to FAILED
-                    self._push_spatial_alerts(record)
+                    # flip a COMPLETED job to FAILED; it runs on the
+                    # worker after job.run, so its span is its own
+                    with _obs_trace.span("job.alert_push",
+                                         job=record.name):
+                        self._push_spatial_alerts(record)
                 except Exception:
                     logger.error("job %s: alert push failed\n%s",
                                  record.name, traceback.format_exc())
@@ -536,7 +539,9 @@ class JobController:
         spec = record.spec
         if record.kind == KIND_FPM:
             from ..analytics.itemsets import DEFAULT_COLUMNS
-            record.progress = JobProgress(record.job_id, FPM_STAGES)
+            record.progress = JobProgress(record.job_id, FPM_STAGES,
+                                          kind=record.kind,
+                                          job=record.name)
             run_pattern_mining(
                 self.db,
                 min_support=int(spec.get("minSupport", 0) or 0),
@@ -552,7 +557,9 @@ class JobController:
             from ..analytics.spatial import (DEFAULT_EPS,
                                              DEFAULT_MIN_SAMPLES)
             record.progress = JobProgress(record.job_id,
-                                          SPATIAL_STAGES)
+                                          SPATIAL_STAGES,
+                                          kind=record.kind,
+                                          job=record.name)
             run_spatial(
                 self.db,
                 eps=float(spec.get("eps") or DEFAULT_EPS),
@@ -565,7 +572,9 @@ class JobController:
                 device=self.device)
             return
         if record.kind == KIND_TAD:
-            record.progress = JobProgress(record.job_id, TAD_STAGES)
+            record.progress = JobProgress(record.job_id, TAD_STAGES,
+                                          kind=record.kind,
+                                          job=record.name)
             run_tad(
                 self.db, str(spec.get("jobType", "EWMA")),
                 TadQuerySpec(
@@ -589,7 +598,9 @@ class JobController:
                 progress=record.progress,
                 device=self.device)
         elif record.kind == KIND_DD:
-            record.progress = JobProgress(record.job_id, DD_STAGES)
+            record.progress = JobProgress(record.job_id, DD_STAGES,
+                                          kind=record.kind,
+                                          job=record.name)
             run_drop_detection(
                 self.db,
                 job_type=str(spec.get("jobType", "initial")),
@@ -600,7 +611,9 @@ class JobController:
                 progress=record.progress,
                 device=self.device)
         else:
-            record.progress = JobProgress(record.job_id, NPR_STAGES)
+            record.progress = JobProgress(record.job_id, NPR_STAGES,
+                                          kind=record.kind,
+                                          job=record.name)
             policy_type = validate_policy_type(
                 str(spec.get("policyType", "anp-deny-applied")))
             option = POLICY_TYPE_OPTION[policy_type]

@@ -29,6 +29,5 @@ from .trace import (  # noqa: F401
     current_context,
     ingress_span,
     span,
-    traced,
     traceparent,
 )

@@ -3,12 +3,12 @@ bounded ring of recent spans, and slowest-span exemplars per operation.
 
 Two layers share one ring:
 
-  * **Flight recorder** (PR 3): any code wraps itself in `span("op")`
-    (context manager) or `@traced` (decorator); finished spans land in
-    a fixed-size ring (newest first on read) and the slowest span per
-    operation is kept as an exemplar. Per-thread nesting links a span
-    to the operation that enclosed it (`parent`).
-  * **Distributed traces** (PR 11): each ingress — a producer
+  * **Flight recorder**: any code wraps itself in `span("op")`
+    (context manager); finished spans land in a fixed-size ring
+    (newest first on read) and the slowest span per operation is kept
+    as an exemplar. Per-thread nesting links a span to the operation
+    that enclosed it (`parent`).
+  * **Distributed traces**: each ingress — a producer
     `POST /ingest`, a coordinator `/query`, a job run, a replication
     ship — mints a W3C-traceparent-style context (128-bit trace id,
     64-bit span id, sampled flag) with `ingress_span(...)`, or adopts
@@ -29,9 +29,23 @@ without tracing.
 
 Span records are plain dicts (JSON-ready for GET /debug/traces):
 
-    {"op", "startTime", "durationMs", "parent", "thread",
+    {"op", "startTime", "durationMs", "parent", "thread", "tid",
      # present under a sampled trace context:
      "traceId", "spanId", "parentSpanId", "node", ...attrs}
+
+`startTime` is `time.time()`; `tid` is the recording thread's native
+id (`threading.get_native_id()`), the id a torch.profiler trace gives
+that thread's host operations. Its CUDA runtime calls may carry
+CUPTI's thread id instead, the thread's `threading.get_ident()` cut to
+32 bits, written as the absolute value of that signed 32-bit number;
+`thread_rows` finds the row for the capture's export.
+
+**Captures.** While a profile capture runs (manager/profiling.py), every
+record the ring takes is also kept for the capture (`start_capture`,
+at most CAPTURE_CAP records, the rest counted as dropped), and
+`chrome_events` turns the records that lie wholly inside the capture
+into Chrome trace events on the trace's clock. With no capture
+running, publishing costs one check more.
 
 Env knobs:
 
@@ -50,7 +64,6 @@ plane). Mutating an attr on the yielded span inside the `with` body
 from __future__ import annotations
 
 import collections
-import functools
 import os
 import random
 import threading
@@ -84,11 +97,54 @@ def _sample_rate(env: Optional[str] = None) -> float:
 #: this, new op names are recorded in the ring but not as exemplars)
 MAX_EXEMPLAR_OPS = 128
 
+#: the most span records one capture keeps
+CAPTURE_CAP = 1_000_000
+
+#: the Chrome trace category of exported spans (none of the profiler's
+#: own categories)
+SPAN_CATEGORY = "theia_span"
+
 _lock = named_lock("trace.ring")
 _ring: Deque[Dict[str, object]] = collections.deque(
     maxlen=_ring_capacity())
 _slowest: Dict[str, Dict[str, object]] = {}
 _local = threading.local()
+
+
+class Capture:
+    """The span records finished while one profile capture runs: the
+    first `cap` of them, and a count of the rest."""
+
+    __slots__ = ("records", "dropped", "cap")
+
+    def __init__(self, cap: int = CAPTURE_CAP) -> None:
+        self.records: List[Dict[str, object]] = []
+        self.dropped = 0
+        self.cap = int(cap)
+
+
+#: the running capture, or None
+_capture: Optional[Capture] = None
+
+
+def thread_rows(runtime_tids) -> Dict[int, int]:
+    """native id → the id under which a trace whose CUDA runtime calls
+    carry `runtime_tids` shows that thread's calls, for every live
+    thread: the native id where the trace uses it, else CUPTI's id of
+    the thread (its ident cut to 32 bits, as is or as the absolute
+    value of that signed number) where the trace uses that, else the
+    native id."""
+    rows: Dict[int, int] = {}
+    for th in threading.enumerate():
+        tid, ident = th.native_id, th.ident
+        if tid is None or ident is None:
+            continue
+        cut = ident & 0xFFFFFFFF
+        signed = cut - (1 << 32) if cut >> 31 else cut
+        rows[tid] = next((row for row in (tid, cut, abs(signed))
+                          if row in runtime_tids), tid)
+    return rows
+
 
 #: this process's node id, stamped on every trace-context span (set by
 #: the manager when a cluster is configured; "" on standalone nodes)
@@ -296,6 +352,7 @@ class Span:
             "durationMs": round(duration * 1e3, 4),
             "parent": self.parent,
             "thread": threading.current_thread().name,
+            "tid": threading.get_native_id(),
         }
         if self.context is not None:
             record["traceId"] = self.context.trace_id
@@ -324,6 +381,29 @@ def _publish(record: Dict[str, object]) -> None:
                 _slowest[op] = record
         elif record["durationMs"] > best["durationMs"]:
             _slowest[op] = record
+        cap = _capture
+        if cap is not None:
+            if len(cap.records) < cap.cap:
+                cap.records.append(record)
+            else:
+                cap.dropped += 1
+
+
+def start_capture(cap: int = CAPTURE_CAP) -> Capture:
+    """Keep every record published from now on (up to `cap`) for a
+    profile capture, until stop_capture(); one capture at a time."""
+    global _capture
+    capture = Capture(cap)
+    with _lock:
+        _capture = capture
+    return capture
+
+
+def stop_capture(capture: Capture) -> None:
+    global _capture
+    with _lock:
+        if _capture is capture:
+            _capture = None
 
 
 def record(op: str, start_time: float, duration_s: float,
@@ -332,27 +412,59 @@ def record(op: str, start_time: float, duration_s: float,
     stopwatches and only record the interesting tail). Under a sampled
     trace context the record joins the trace; under an unsampled one
     it is dropped with the rest of the trace."""
+    record_in(current_span(), op, start_time, duration_s, **attrs)
+
+
+def record_in(parent: Optional["Span"], op: str, start_time: float,
+              duration_s: float, **attrs: object) -> None:
+    """record() as a child of `parent`, a span of this thread that may
+    have closed since (a job stage timed from one call to the next);
+    with no parent, a record of no trace."""
     if not _metrics.enabled():
         return
     rec: Dict[str, object] = {
         "op": op,
         "startTime": start_time,
         "durationMs": round(duration_s * 1e3, 4),
-        "parent": current_op(),
+        "parent": parent.op if parent is not None else None,
         "thread": threading.current_thread().name,
+        "tid": threading.get_native_id(),
     }
-    stack = getattr(_local, "stack", None)
-    if stack:
-        ctx = stack[-1].context
-        if ctx is not None:
-            if not ctx.sampled:
-                return
-            rec["traceId"] = ctx.trace_id
-            rec["spanId"] = new_span_id()
-            rec["parentSpanId"] = ctx.span_id
-            rec["node"] = _node_id
+    ctx = parent.context if parent is not None else None
+    if ctx is not None:
+        if not ctx.sampled:
+            return
+        rec["traceId"] = ctx.trace_id
+        rec["spanId"] = new_span_id()
+        rec["parentSpanId"] = ctx.span_id
+        rec["node"] = _node_id
     rec.update(attrs)
     _publish(rec)
+
+
+def chrome_events(records, offset_us: float, lo: float, hi: float,
+                  pid: int, rows: Optional[Dict[int, int]] = None
+                  ) -> List[Dict[str, object]]:
+    """Chrome trace `"ph": "X"` events of the span records that lie
+    wholly inside [lo, hi] (`time.time()` seconds): `ts` is a record's
+    startTime in µs plus `offset_us`, the trace's clock less the wall
+    clock; `tid` is the record's, or its row in `rows` (thread_rows);
+    `args` holds every field but the op, the times and the tid."""
+    rows = rows or {}
+    out: List[Dict[str, object]] = []
+    for rec in records:
+        start = float(rec["startTime"])
+        dur_s = float(rec["durationMs"]) / 1e3
+        if start < lo or start + dur_s > hi:
+            continue
+        out.append({
+            "ph": "X", "cat": SPAN_CATEGORY, "name": str(rec["op"]),
+            "pid": pid, "tid": rows.get(rec.get("tid", 0),
+                                        rec.get("tid", 0)),
+            "ts": start * 1e6 + offset_us, "dur": dur_s * 1e6,
+            "args": {k: v for k, v in rec.items() if k not in (
+                "op", "startTime", "durationMs", "tid")}})
+    return out
 
 
 def span(op: str, **attrs: object) -> Span:
@@ -389,24 +501,16 @@ def child_span(op: str, ctx: Optional[TraceContext],
     return Span(op, dict(attrs), ctx=ctx)
 
 
-def traced(op: Optional[str] = None):
-    """Decorator form of span(); the op name defaults to the function's
-    qualified name."""
-    def wrap(fn):
-        name = op or fn.__qualname__
-
-        @functools.wraps(fn)
-        def inner(*args, **kwargs):
-            with span(name):
-                return fn(*args, **kwargs)
-        return inner
-    return wrap
-
-
 def current_op() -> Optional[str]:
     """The innermost span op on this thread (None outside any span)."""
     stack = getattr(_local, "stack", None)
     return stack[-1].op if stack else None
+
+
+def current_span() -> Optional[Span]:
+    """The innermost open span on this thread (None outside any)."""
+    stack = getattr(_local, "stack", None)
+    return stack[-1] if stack else None
 
 
 def recent(limit: int = 100) -> List[Dict[str, object]]:
@@ -418,12 +522,14 @@ def recent(limit: int = 100) -> List[Dict[str, object]]:
 
 
 def spans_for_trace(trace_id: str) -> List[Dict[str, object]]:
-    """Every retained span of one trace, oldest first — the local half
+    """Every retained span of one trace, or linked to it (`links`: a
+    step that served several traces), oldest first — the local half
     of the cluster-stitched GET /debug/traces?trace=<id>."""
     tid = str(trace_id).strip().lower()
     with _lock:
         return [dict(rec) for rec in _ring
-                if rec.get("traceId") == tid]
+                if rec.get("traceId") == tid
+                or tid in rec.get("links", ())]
 
 
 def slowest() -> Dict[str, Dict[str, object]]:

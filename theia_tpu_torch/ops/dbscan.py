@@ -23,7 +23,10 @@ dtype, as the reference's XLA path on the CPU).
 `dbscan_points_noise` is the spatial variant over [N, F] point
 embeddings (theia_tpu/ops/dbscan.py:126): the same closed-form noise
 test over euclidean distance, in [block, N] tiles of torch ops with a
-full-float32 matmul, as the reference leaves it to XLA.
+full-float32 matmul, as the reference leaves it to XLA. Each pass is
+one span (`dbscan.count_pass`, `dbscan.reach_pass`, obs/trace.py, attrs
+`rows`, `points`, `block`) around its tiles' launches, whether the
+one-device job or a shard (parallel/) calls it.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs import trace as _trace
 from .masked import masked_stddev_samp
 
 DEFAULT_EPS = 2.5e8
@@ -295,15 +299,17 @@ def points_neighbour_counts(rows: torch.Tensor, points: torch.Tensor,
     same way. TF32 is switched off first (see dbscan_points_noise)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     m = rows.shape[0]
-    rows = _pad_rows(rows, block)
-    x2 = (points * points).sum(-1)
-    eps2 = eps * eps
-    counts = torch.empty(rows.shape[0], dtype=torch.int64,
-                         device=rows.device)
-    for i in range(0, rows.shape[0], block):
-        w = _within(rows[i:i + block], points, x2, eps2)
-        w &= valid[None, :]
-        counts[i:i + block] = w.sum(-1)
+    with _trace.span("dbscan.count_pass", rows=m, points=points.shape[0],
+                     block=block):
+        rows = _pad_rows(rows, block)
+        x2 = (points * points).sum(-1)
+        eps2 = eps * eps
+        counts = torch.empty(rows.shape[0], dtype=torch.int64,
+                             device=rows.device)
+        for i in range(0, rows.shape[0], block):
+            w = _within(rows[i:i + block], points, x2, eps2)
+            w &= valid[None, :]
+            counts[i:i + block] = w.sum(-1)
     return counts[:m]
 
 
@@ -315,15 +321,17 @@ def points_reachable(rows: torch.Tensor, points: torch.Tensor,
     `points_neighbour_counts`."""
     torch.backends.cuda.matmul.allow_tf32 = False
     m = rows.shape[0]
-    rows = _pad_rows(rows, block)
-    x2 = (points * points).sum(-1)
-    eps2 = eps * eps
-    reachable = torch.empty(rows.shape[0], dtype=torch.bool,
-                            device=rows.device)
-    for i in range(0, rows.shape[0], block):
-        w = _within(rows[i:i + block], points, x2, eps2)
-        w &= core[None, :]
-        reachable[i:i + block] = w.any(-1)
+    with _trace.span("dbscan.reach_pass", rows=m, points=points.shape[0],
+                     block=block):
+        rows = _pad_rows(rows, block)
+        x2 = (points * points).sum(-1)
+        eps2 = eps * eps
+        reachable = torch.empty(rows.shape[0], dtype=torch.bool,
+                                device=rows.device)
+        for i in range(0, rows.shape[0], block):
+            w = _within(rows[i:i + block], points, x2, eps2)
+            w &= core[None, :]
+            reachable[i:i + block] = w.any(-1)
     return reachable[:m]
 
 

@@ -6,6 +6,13 @@ totalStages into CRD status).
 The runner updates a JSON document after every stage; it is written
 atomically to a file (for the file-based manager/controller seam) and
 kept in memory for in-process callers.
+
+Each stage is also timed as a `job.stage` span (obs/trace.py, attrs
+`stage`, `kind`, `job`): stage() starts the clock, and the next
+stage(), done() or fail() publishes the record, as a child of the span
+that was open when the stage began (a job's `job.run`, so it joins the
+job's trace). No span is left open on the thread between the calls; the
+stage an attempt that is retried failed in is not published.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import threading
 import time
 from typing import List, Optional
 
+from ..obs import trace as _trace
 from ..utils import atomic_write
 from ..analysis.lockdep import named_lock
 
@@ -27,10 +35,17 @@ class JobProgress:
     """
 
     def __init__(self, job_id: str, stages: List[str],
-                 path: Optional[str] = None) -> None:
+                 path: Optional[str] = None, kind: str = "",
+                 job: Optional[str] = None) -> None:
         self.job_id = job_id
         self.stages = list(stages)
         self.path = path
+        #: the job's kind and name, as attrs of its stage spans
+        self.kind = kind
+        self.job = job or job_id
+        #: the open stage: (name, wall start, perf_counter start, the
+        #: span it is a child of)
+        self._open: Optional[tuple] = None
         self._completed = 0
         self._state = "RUNNING"
         self._error = ""
@@ -44,6 +59,9 @@ class JobProgress:
             if self._current:
                 self._completed += 1
             self._current = name
+        self._end_stage()
+        self._open = (name, time.time(), time.perf_counter(),
+                      _trace.current_span())
         self._flush()
 
     def done(self) -> None:
@@ -51,13 +69,23 @@ class JobProgress:
             self._completed = len(self.stages)
             self._current = ""
             self._state = "COMPLETED"
+        self._end_stage()
         self._flush()
 
     def fail(self, error: str) -> None:
         with self._lock:
             self._state = "FAILED"
             self._error = error
+        self._end_stage(error=error)
         self._flush()
+
+    def _end_stage(self, **attrs: object) -> None:
+        opened, self._open = self._open, None
+        if opened is not None:
+            name, start, t0, parent = opened
+            _trace.record_in(parent, "job.stage", start,
+                             time.perf_counter() - t0, stage=name,
+                             kind=self.kind, job=self.job, **attrs)
 
     def snapshot(self) -> dict:
         with self._lock:
