@@ -1137,7 +1137,7 @@ def check_tad_parity(got: dict) -> None:
 
 
 def build_kernels() -> dict:
-    """Both kernel libraries, one nvcc each, started together; seconds
+    """The kernel libraries, one nvcc each, started together; seconds
     per library."""
     from theia_tpu_torch.ops import _build
     seconds: dict = {}
@@ -1152,7 +1152,7 @@ def build_kernels() -> dict:
         seconds[name] = time.perf_counter() - t0
 
     threads = [threading.Thread(target=build, args=(n,))
-               for n in ("stream_scan", "dbscan_noise")]
+               for n in ("stream_scan", "dbscan_noise", "points_pairs")]
     for th in threads:
         th.start()
     for th in threads:
@@ -1954,7 +1954,7 @@ def phase_cli(port: int, device) -> dict:
                 or (on_card and not kernels):
             raise AssertionError(f"theia profile: {out['profile']}")
     if on_card:
-        out["card"] = watch.doc(0, out["probes"][0]["free_before"])
+        out["card"] = watch.doc(0)
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -2228,6 +2228,141 @@ def points_recount(points, rows, eps: float, min_samples: int,
     return noise, ambiguous
 
 
+#: the points kernel phase: each pass timed this many times after a
+#: warm run, over the SAD cell's store shape (8,192 connections x 32
+#: flows of the synthetic generator) and manager_jobs' SAD store (the
+#: TAD flows, 8,192 x 128)
+POINTS_TIMED = 3
+POINTS_CELL = (8192, 32)
+
+
+def _profiled_kernel_ms(fn, name: str) -> float:
+    """Device time of the kernels whose name holds `name` in one
+    profiled call of fn, ms."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    _, by_name = device_activity(prof, window_us)
+    return sum(v["ms"] for k, v in by_name.items() if name in k)
+
+
+def compare_points(emb, device) -> dict:
+    """The spatial DBSCAN's two passes at [N, F] = emb.shape on the
+    card: the kernel (csrc/points_pairs.cu through
+    points_neighbour_counts and points_reachable with the rows' core
+    flags, as dbscan_points_noise runs them) against the plain version
+    (the torch tiles, on the card), with the least time of each pass
+    from portbench/roofline.py (n² pairs, then (n − core)·core), the
+    peak allocated bytes of each kernel pass above what was allocated
+    before it, and every count and flag that differs recounted in
+    float64: the row has to have a pair in the eps band."""
+    import torch
+    from portbench import roofline
+    from theia_tpu_torch.ops import dbscan
+    eps, min_samples = 1.0, 4
+    pts = emb.to(device=device, dtype=torch.float32).contiguous()
+    n, f = pts.shape
+    valid = torch.ones(n, dtype=torch.bool, device=device)
+    out: dict = {"N": n, "F": f}
+
+    def count():
+        return dbscan.points_neighbour_counts(pts, pts, valid, eps)
+
+    torch.cuda.synchronize()
+    launches0 = dbscan.points_launches
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts = count()
+    torch.cuda.synchronize()
+    out["count_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    core = (counts >= min_samples) & valid
+
+    def reach():
+        return dbscan.points_reachable(pts, pts, core, eps, row_core=core)
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reached = reach()
+    torch.cuda.synchronize()
+    out["reach_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["launches_one_call"] = dbscan.points_launches - launches0
+    out["count_ms"] = cuda_median_ms(count, n=POINTS_TIMED, warmup=0)
+    out["reach_ms"] = cuda_median_ms(reach, n=POINTS_TIMED, warmup=0)
+    out["count_kernel_ms"] = _profiled_kernel_ms(count, "points_pairs")
+    out["reach_kernel_ms"] = _profiled_kernel_ms(reach, "points_pairs")
+    noise = valid & ~core & ~reached
+    n_core = int(core.sum())
+    count_ops = roofline.sad_pairs_ops(n, f, n)     # no reach term
+    bound_s, bound_by = roofline.sad_pairs_bound_s(n, f, n_core)
+    out.update(
+        core=n_core, noise=int(noise.sum()),
+        count_bound_ms=count_ops / roofline.F32_FLOPS * 1e3,
+        reach_bound_ms=(roofline.sad_pairs_ops(n, f, n_core) - count_ops)
+        / roofline.F32_FLOPS * 1e3,
+        bound_ms=bound_s * 1e3, bound_by=bound_by)
+    out["roofline_share"] = out["bound_ms"] / (out["count_ms"]
+                                               + out["reach_ms"])
+
+    # the plain version on the card, once each pass
+    a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    a.record()
+    counts_p = dbscan._counts_tiles(pts, pts, valid, eps, 1024)
+    b.record()
+    core_p = (counts_p >= min_samples) & valid
+    reached_p = dbscan._reachable_tiles(pts, pts, core_p, eps, 1024)
+    c.record()
+    c.synchronize()
+    out.update(plain_count_ms=a.elapsed_time(b),
+               plain_reach_ms=b.elapsed_time(c))
+    noise_p = valid & ~core_p & ~reached_p
+    rows_differ = (counts != counts_p).nonzero()[:, 0]
+    differ = (noise != noise_p).nonzero()[:, 0]
+    out["count_rows_differ"] = len(rows_differ)
+    out["noise_differ"] = len(differ)
+    out["count_differ_outside_band"] = 0
+    out["noise_differ_outside_band"] = 0
+    if len(rows_differ):
+        p64 = pts.to(torch.float64)
+        _, band, _ = _recount_rows(p64, (p64 * p64).sum(1), rows_differ,
+                                   eps * eps, min_samples, 64)
+        out["count_differ_outside_band"] = int((~band).sum())
+    if len(differ):
+        _, amb = points_recount(pts, differ, eps, min_samples)
+        out["noise_differ_outside_band"] = int((~amb).sum())
+    del pts, counts, counts_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_points_kernel(flows, device) -> dict:
+    """compare_points over the embeddings of the SAD cell's store shape
+    (POINTS_CELL, 262,144 flows) and of `flows` (the jobs' store)."""
+    import torch
+    from theia_tpu_torch.analytics import flow_embeddings
+    from theia_tpu_torch.data.synth import SynthConfig, generate_flows
+    n_series, points = POINTS_CELL
+    cell = generate_flows(SynthConfig(n_series=n_series,
+                                      points_per_series=points, seed=14))
+    return {"shapes": [
+        compare_points(torch.from_numpy(flow_embeddings(f)), device)
+        for f in (cell, flows)]}
+
+
+def check_points_kernel(got: dict) -> None:
+    """Counts and flags equal the plain version's outside the eps band;
+    one launch a pass (the reach pass only when a point is not
+    core)."""
+    for row in got["shapes"]:
+        if row["count_differ_outside_band"] \
+                or row["noise_differ_outside_band"] \
+                or row["launches_one_call"] != 1 + (row["core"] < row["N"]):
+            raise AssertionError(f"points kernel against plain: {row}")
+
+
 #: the four job kinds: (intelligence resource, name prefix, spec, the
 #: job's device entry as (module, attribute), the progress stage that
 #: runs it)
@@ -2490,6 +2625,7 @@ def drive_jobs(port: int, device, kept: dict) -> tuple:
     SAD's points and flags as `sad-points`."""
     import uuid
     import torch
+    from theia_tpu_torch.ops import dbscan
     db = live_controller().db
     out: dict = {"store_rows": total_rows(port)}
     parity: dict = {}
@@ -2513,6 +2649,7 @@ def drive_jobs(port: int, device, kept: dict) -> tuple:
             for mode in ("timed", "profiled"):
                 name = f"{prefix}-{uuid.uuid4()}"
                 torch.cuda.reset_peak_memory_stats()
+                launches0 = dbscan.points_launches
                 t0 = time.perf_counter()
                 with DeviceCall(mod, attr, profile=mode == "profiled",
                                 keep=mode == "timed") as call:
@@ -2526,6 +2663,7 @@ def drive_jobs(port: int, device, kept: dict) -> tuple:
                     "device": call.summary(),
                     "max_memory_allocated":
                         torch.cuda.max_memory_allocated(),
+                    "points_launches": dbscan.points_launches - launches0,
                     "job_id": st["sparkApplication"]})
             name, doc, call, job = runs["timed"]
             kept[kind] = doc
@@ -2572,6 +2710,10 @@ def drive_jobs(port: int, device, kept: dict) -> tuple:
                                and a.get("job") == name for a in alerts))
                 if not job["spatial_alerts"]:
                     raise AssertionError("no spatial alert reached /alerts")
+                if device.type == "cuda" and job["points_launches"] != 2:
+                    raise AssertionError(f"the SAD job's passes: "
+                                         f"{job['points_launches']} points "
+                                         "kernel launches, not 2")
             if kind == "dd":
                 found = {(r["endpoint"], r["direction"],
                           int(r["anomalyDropDate"])) for r in doc["stats"]}
@@ -2730,6 +2872,9 @@ SUB_JOBS = (
      {**JOB_KINDS["sad"][2], "endInterval": SUB_SAD_END}),
     ("dd", JOB_KINDS["dd"][0], JOB_KINDS["dd"][1], JOB_KINDS["dd"][2]),
 )
+#: SAD jobs the SIGKILL drill may post before its kill lands in a live
+#: child
+SUB_KILL_TRIES = 5
 #: the deadline drill's SAD deadline, and its memory check: the card's
 #: free memory back within SUB_FREED_SLACK bytes of its value before
 #: the spawn, within SUB_FREED_S seconds of the kill
@@ -2908,15 +3053,12 @@ def compute_apps() -> list:
 
 class CardWatch:
     """While active, a thread lists the card's compute processes
-    (`nvidia-smi --query-compute-apps=pid,used_memory`) and reads its
-    free memory (torch.cuda.mem_get_info, the whole card's) every half
+    (`nvidia-smi --query-compute-apps=pid,used_memory`) every half
     second; `before` is the listing on entry."""
 
     def __enter__(self):
-        import torch
         self.before = compute_apps()
         self.listings: list = []
-        self.min_free = torch.cuda.mem_get_info()[0]
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._poll,
                                         name="card-watch")
@@ -2924,10 +3066,8 @@ class CardWatch:
         return self
 
     def _poll(self):
-        import torch
         while not self._stop.is_set():
             self.listings.append(compute_apps())
-            self.min_free = min(self.min_free, torch.cuda.mem_get_info()[0])
             self._stop.wait(0.5)
 
     def __exit__(self, *exc):
@@ -2942,24 +3082,16 @@ class CardWatch:
                 if p == pid]
         return max(seen) if seen else None
 
-    def doc(self, pid: int, free_before: int) -> dict:
+    def doc(self, pid: int) -> dict:
         """What the watch saw of the child `pid`: nvidia-smi's memory
-        for it, the processes listed before and at most during, the
-        most memory listed beyond the listing before, and the card's
-        free memory before and at its lowest."""
-        base = sum(mib for _, mib in self.before)
+        for it, and the processes listed before and at most during."""
         return {"pid": pid, "nvidia_smi_mib": self.used_mib(pid),
                 "pids_listed": sorted({p for rows in self.listings
                                        for p, _ in rows}),
                 "listings": len(self.listings),
                 "processes_before": len(self.before),
                 "processes_max": max((len(r) for r in self.listings),
-                                     default=0),
-                "listed_mib_over_before": max(
-                    (sum(m for _, m in r) - base for r in self.listings),
-                    default=0),
-                "free_before": free_before,
-                "min_free_during": self.min_free}
+                                     default=0)}
 
 
 def sad_window(db, device) -> tuple:
@@ -3052,7 +3184,6 @@ def phase_manager_subprocess(snapshot: str, kept: dict, thread: dict,
                 name = f"{prefix}-{uuid.uuid4()}"
                 with (CardWatch() if label == "sad"
                       else contextlib.nullcontext()) as watch:
-                    free0 = torch.cuda.mem_get_info()[0]
                     docs[label] = run_api_job(
                         port, resource, {"metadata": {"name": name}, **spec})
                 record = ctl.get(name)
@@ -3065,28 +3196,40 @@ def phase_manager_subprocess(snapshot: str, kept: dict, thread: dict,
                     if label == "sad" else
                     compare_rows(label, got, job_rows(label, kept[label])))
                 if watch is not None:
-                    out["sad_on_card"] = watch.doc(record.runner_pid,
-                                                   free0)
-            # (3) SIGKILL drill
+                    out["sad_on_card"] = watch.doc(record.runner_pid)
+            # (3) SIGKILL drill: the child killed once it has finished
+            # two stages. Its score stage takes a fraction of a second
+            # on the points kernel, so a child that ended before the
+            # kill landed is drilled again with a new job.
             resource, prefix, spec = SUB_JOBS[4][1:]
-            name = f"{prefix}-{uuid.uuid4()}"
-            http_json(port, f"{GROUP}/{resource}", "POST",
-                      {"metadata": {"name": name}, **spec, "retries": 1})
-            record = ctl.get(name)
-            deadline = time.monotonic() + JOB_TIMEOUT_S
-            while time.monotonic() < deadline and record.state in (
-                    "SCHEDULED", "RUNNING") and not (
-                    record.runner_pid and record.progress is not None
-                    and record.progress.snapshot()["completedStages"] >= 2):
-                time.sleep(0.05)
-            killed = record.runner_pid
-            stage_at_kill = record.progress.snapshot()["completedStages"]
-            os.kill(killed, signal.SIGKILL)
+            for kill_tries in range(1, SUB_KILL_TRIES + 1):
+                name = f"{prefix}-{uuid.uuid4()}"
+                http_json(port, f"{GROUP}/{resource}", "POST",
+                          {"metadata": {"name": name}, **spec,
+                           "retries": 1})
+                record = ctl.get(name)
+                deadline = time.monotonic() + JOB_TIMEOUT_S
+                while time.monotonic() < deadline and record.state in (
+                        "SCHEDULED", "RUNNING") and not (
+                        record.runner_pid and record.progress is not None
+                        and record.progress.snapshot()[
+                            "completedStages"] >= 2):
+                    time.sleep(0.05)
+                killed = record.runner_pid
+                stage_at_kill = record.progress.snapshot()[
+                    "completedStages"]
+                if record.state == "RUNNING":
+                    try:
+                        os.kill(killed, signal.SIGKILL)
+                        break
+                    except ProcessLookupError:
+                        pass
+                poll_api_job(port, resource, name)
             doc = poll_api_job(port, resource, name)
             st = doc["status"]
             out["sigkill"] = {
                 "killed_pid": killed, "completed_stages_at_kill":
-                    stage_at_kill,
+                    stage_at_kill, "tries": kill_tries,
                 "state": st["state"], "attempts": st["attempts"],
                 "last_failure": st["lastFailureReason"],
                 "retry_pid": record.runner_pid,
@@ -3186,15 +3329,11 @@ def check_manager_subprocess(got: dict, device) -> None:
     card = got["sad_on_card"]
     # nvidia-smi lists the child's pid; or, where the sandbox's pid
     # namespace hides the real pids (nvidia-smi then lists other
-    # numbers), it lists one more compute process, or a GiB more
-    # memory, while the child runs than before its spawn, and the
-    # card's free memory falls by more than a GiB meanwhile
-    if card["nvidia_smi_mib"] is None and not (
-            (card["processes_max"] > card["processes_before"]
-             or card["listed_mib_over_before"] * 2 ** 20
-             >= SUB_FREED_SLACK)
-            and card["free_before"] - card["min_free_during"]
-            >= SUB_FREED_SLACK):
+    # numbers), the child reports its two points-kernel launches on the
+    # card (the passes allocate tens of MiB, too little to see in the
+    # card's free memory beside the context)
+    if card["nvidia_smi_mib"] is None and \
+            got["jobs"]["sad"]["launches"].get("points", 0) != 2:
         raise AssertionError(f"the SAD child was not seen on the card: "
                              f"{card}")
     kill = got["sigkill"]
@@ -3235,12 +3374,13 @@ MD_FLAG_BAND = 1e-9
 
 
 def md_run(run, devices) -> tuple:
-    """`run()` with B2's count set to 0 just before it and read just
-    after, and each CUDA device's peak allocated bytes reset before it
-    and read after (the shards of a logical mesh share one card, so
-    its peak is theirs together): (its result, {seconds, span_ms —
-    CUDA events around the call on the first card, so the span ends
-    with the call's last kernel —, b2_launches, peak_allocated})."""
+    """`run()` with B2's and the points kernel's counts set to 0 just
+    before it and read just after, and each CUDA device's peak
+    allocated bytes reset before it and read after (the shards of a
+    logical mesh share one card, so its peak is theirs together): (its
+    result, {seconds, span_ms — CUDA events around the call on the
+    first card, so the span ends with the call's last kernel —,
+    b2_launches, points_launches, peak_allocated})."""
     import torch
     from theia_tpu_torch.ops import dbscan
     cards = sorted({torch.device(d) for d in devices
@@ -3254,9 +3394,10 @@ def md_run(run, devices) -> tuple:
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
     dbscan.launches = 0
+    dbscan.points_launches = 0
     t0 = time.perf_counter()
     result = run()
-    launches = dbscan.launches
+    launches, points_launches = dbscan.launches, dbscan.points_launches
     if events is not None:
         with torch.cuda.device(cards[0]):
             events[1].record()
@@ -3267,6 +3408,7 @@ def md_run(run, devices) -> tuple:
         "span_ms": None if events is None
         else events[0].elapsed_time(events[1]),
         "b2_launches": launches,
+        "points_launches": points_launches,
         "peak_allocated": {str(d): torch.cuda.max_memory_allocated(d)
                            for d in cards}}
 
@@ -3320,8 +3462,10 @@ def phase_multi_device(flows, sad_points, sad_noise, device,
     within MD_TIME_RTOL, and score_series' automatic time sharding;
     run_npr and pattern mining over the same flows, sharded against
     one device, rows equal; the sharded SAD passes over the points
-    manager_jobs' SAD job scored, against that job's flags (a flag may
-    differ only in the float32 eps band, recounted in float64). Where
+    manager_jobs' SAD job scored, against that job's flags (on a card
+    both run the points kernel, so they are equal bit for bit; on the
+    CPU a flag may differ only in the float32 eps band, recounted in
+    float64). Where
     the host has more than one card, run_tad again over a mesh of the
     real cards."""
     import datetime
@@ -3461,8 +3605,10 @@ def check_multi_device(got: dict, device) -> None:
         if not (got[kind]["rows_equal"] and got[kind]["rows"]):
             raise AssertionError(f"{kind} sharded vs one device: "
                                  f"{got[kind]}")
-    if got["sad"]["differ_outside_band"] or not got["sad"]["noise"]:
-        raise AssertionError(f"SAD sharded vs the job: {got['sad']}")
+    sad = got["sad"]
+    if sad["differ_outside_band"] or not sad["noise"] or (
+            device.type == "cuda" and sad["differ"]):
+        raise AssertionError(f"SAD sharded vs the job: {sad}")
 
 
 # -- the scale-out slice: the cluster tier ------------------------------
@@ -3859,6 +4005,26 @@ def main() -> int:
         "bound_full_ms": at_tad["bound_full_ms"],
     })
 
+    # The points kernel at the SAD cell's size and the SAD job's.
+    points = phase_points_kernel(flows, device)
+    emit("points_kernel", kernel="points_pairs", **points)
+    check_points_kernel(points)
+    at_cell = points["shapes"][0]
+    kernels.append({
+        "name": "points_pairs", "route": "cuda",
+        "source": "theia_tpu_torch/csrc/points_pairs.cu",
+        "replaces": None,
+        "tpu": "none: the reference leaves it to XLA "
+               "(theia_tpu/ops/dbscan.py:126)",
+        "matches_plain": all(not r["noise_differ_outside_band"]
+                             for r in points["shapes"]),
+        "shape": {"N": at_cell["N"], "F": at_cell["F"]},
+        "ms": at_cell["count_ms"] + at_cell["reach_ms"],
+        "plain_ms": at_cell["plain_count_ms"] + at_cell["plain_reach_ms"],
+        "bound_ms": at_cell["bound_ms"], "bound_by": at_cell["bound_by"],
+        "library_ms": None,
+    })
+
     # The manager slice: the same paths through the port's manager.
     manager = phase_manager_path(main_blocks, device)
     emit("manager_path", **manager)
@@ -3944,6 +4110,13 @@ def main() -> int:
             # one a shard of the sharded DBSCAN
             "multi_device": multi["tad"]["DBSCAN"]["sharded"][
                 "b2_launches"]})
+    kernels[2].update(
+        launches=jobs["sad"]["points_launches"],
+        launches_by_path={
+            "manager_jobs": jobs["sad"]["points_launches"],
+            # a count pass a shard, a reach pass a shard with a non-core
+            # row
+            "multi_device": multi["sad"]["sharded"]["points_launches"]})
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -541,12 +541,24 @@ def test_sad_job_spans_its_passes_copies_and_alert_push():
     score = next(s for s in by_op["job.stage"] if s["stage"] == "score")
     lo = score["startTime"]
     hi = lo + score["durationMs"] / 1e3 + 1e-3
-    n = len(_job_db().flows.select(None, None))
+    flows = _job_db().flows.select(None, None)
+    n = len(flows)
     for op in ("dbscan.count_pass", "dbscan.reach_pass"):
         (sp,) = by_op[op]
         assert sp["parentSpanId"] == run["spanId"]
         assert (sp["points"], sp["block"]) == (-(-n // 1024) * 1024, 1024)
-        assert sp["rows"] == sp["points"]
+        assert sp["route"] == "torch"
+    # the count pass evaluates every point, the reach pass the non-core
+    # ones (the padding among them)
+    import torch
+    from theia_tpu_torch.analytics.spatial import flow_embeddings
+    from theia_tpu_torch.ops import dbscan
+    pts = dbscan._pad_rows(torch.from_numpy(flow_embeddings(flows)), 1024)
+    valid = torch.arange(len(pts)) < n
+    core = (dbscan.points_neighbour_counts(pts, pts, valid, 1.0) >= 4) \
+        & valid
+    assert by_op["dbscan.count_pass"][0]["rows"] == len(pts)
+    assert by_op["dbscan.reach_pass"][0]["rows"] == int((~core).sum())
     for op in ("dbscan.count_pass", "dbscan.reach_pass", "sad.to_device",
                "sad.fetch", "sad.decode"):
         (sp,) = by_op[op]

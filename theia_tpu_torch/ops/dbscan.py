@@ -21,12 +21,15 @@ rounds float64 x itself) and a CPU tensor to `dbscan_noise` (in x's
 dtype, as the reference's XLA path on the CPU).
 
 `dbscan_points_noise` is the spatial variant over [N, F] point
-embeddings (theia_tpu/ops/dbscan.py:126): the same closed-form noise
-test over euclidean distance, in [block, N] tiles of torch ops with a
-full-float32 matmul, as the reference leaves it to XLA. Each pass is
-one span (`dbscan.count_pass`, `dbscan.reach_pass`, obs/trace.py, attrs
-`rows`, `points`, `block`) around its tiles' launches, whether the
-one-device job or a shard (parallel/) calls it.
+embeddings (theia_tpu/ops/dbscan.py:126, which leaves it to XLA): the
+same closed-form noise test over euclidean distance, in two passes. A
+CUDA tensor takes the hand-written kernel csrc/points_pairs.cu, one
+launch a pass (the module counts `points_launches`); a CPU tensor
+takes the plain version, [block, N] tiles of torch ops with a
+full-float32 matmul. Each pass is one span (`dbscan.count_pass`,
+`dbscan.reach_pass`, obs/trace.py, attrs `rows`, `points`, `block`,
+`route`) around its launches, whether the one-device job or a shard
+(parallel/) calls it.
 """
 
 from __future__ import annotations
@@ -258,10 +261,28 @@ def dbscan_scores(x: torch.Tensor, mask: torch.Tensor,
 # The BASELINE north-star config 3 generalization: "DBSCAN spatial
 # anomaly on (srcIP, dstIP, dstPort, bytes) embeddings". Same
 # closed-form noise test as the per-series kernel, over euclidean
-# distance in feature space, computed in [block, N] tiles so the full
-# [N, N] distance matrix never materializes: two passes (neighbour
-# counts, then core-reachability), each tile one matmul-shaped
-# distance evaluation.
+# distance in feature space, in two passes (neighbour counts, then
+# core-reachability). CUDA tensors take the hand-written kernel
+# csrc/points_pairs.cu, one launch a pass, which keeps each pair's d²
+# in registers; CPU tensors take the plain version, [block, N] tiles of
+# torch ops, each tile one matmul-shaped distance evaluation, so the
+# full [N, N] distance matrix never materializes.
+
+#: points_pairs kernel launches since import (one a pass that reached
+#: the card); a pass on CPU tensors runs the plain version and does not
+#: count
+points_launches = 0
+
+#: the kernel's constants (checked against the library when it loads):
+#: floats a packed point, the widest points, columns a shared-memory
+#: tile (the packed columns' padding), rows a block in count and reach
+#: mode (the packed rows' padding)
+_PTS_WIDTH = 8
+_PTS_MAX_F = 7
+_PTS_TILE = 256
+_PTS_BLOCK_ROWS = {False: 2048, True: 512}
+_F32_MAX = torch.finfo(torch.float32).max
+
 
 def _within(tile: torch.Tensor, points: torch.Tensor, x2: torch.Tensor,
             eps2: float) -> torch.Tensor:
@@ -285,6 +306,142 @@ def _pad_rows(a: torch.Tensor, multiple: int) -> torch.Tensor:
     return a
 
 
+def _check_points(rows: torch.Tensor, points: torch.Tensor,
+                  flags: torch.Tensor) -> None:
+    """Raise ValueError for a pass the kernel does not take: rows [M, F]
+    and points [N, F] contiguous float32 with 1 ≤ F ≤ 7, flags bool [N],
+    all on one device, the padded sizes within int32."""
+    for name, a in (("rows", rows), ("points", points)):
+        if a.dtype != torch.float32:
+            raise ValueError(f"points_pairs: {name} must be float32, got "
+                             f"{a.dtype}")
+        if a.dim() != 2:
+            raise ValueError(f"points_pairs: {name} must be [*, F], got "
+                             f"{tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"points_pairs: {name} must be contiguous")
+        if a.shape[0] + _PTS_BLOCK_ROWS[False] >= 2 ** 31:
+            raise ValueError(f"points_pairs: {a.shape[0]} {name} are "
+                             "beyond the kernel's int32 sizes")
+    f = points.shape[1]
+    if rows.shape[1] != f or not 1 <= f <= _PTS_MAX_F:
+        raise ValueError(f"points_pairs: rows {tuple(rows.shape)} and "
+                         f"points {tuple(points.shape)}: the kernel takes "
+                         f"one width F, 1 ≤ F ≤ {_PTS_MAX_F}")
+    if flags.dtype != torch.bool or tuple(flags.shape) != (points.shape[0],):
+        raise ValueError(f"points_pairs: flags must be bool "
+                         f"[{points.shape[0]}], got {flags.dtype} "
+                         f"{tuple(flags.shape)}")
+    if not rows.device == points.device == flags.device:
+        raise ValueError("points_pairs: rows, points and flags must lie on "
+                         f"one device, got {rows.device}, {points.device} "
+                         f"and {flags.device}")
+
+
+def _route(rows: torch.Tensor, points: torch.Tensor,
+           flags: torch.Tensor) -> str:
+    """"kernel" for CUDA tensors the kernel takes (else raise), "torch"
+    (the plain version) for CPU tensors."""
+    if rows.device.type == "cuda":
+        _check_points(rows, points, flags)
+        return "kernel"
+    if rows.device.type == "cpu":
+        return "torch"
+    raise ValueError(f"points_pairs: no route for {rows.device}")
+
+
+def _points_library():
+    from ._build import library
+    lib = library("points_pairs")
+    fn = lib.points_pairs
+    if fn.argtypes is None:
+        got = (lib.points_width(), lib.points_max_f(), lib.points_tile(),
+               lib.points_block_rows(0), lib.points_block_rows(1))
+        want = (_PTS_WIDTH, _PTS_MAX_F, _PTS_TILE, _PTS_BLOCK_ROWS[False],
+                _PTS_BLOCK_ROWS[True])
+        if got != want:
+            raise RuntimeError(f"points_pairs: the library's constants "
+                               f"{got} differ from the wrapper's {want}")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr, ptr]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _sq_norms(a: torch.Tensor) -> torch.Tensor:
+    """|a_i|² in float64, summed over the columns in order: the same
+    value for a point whichever rows a tensor holds."""
+    p = a.double()
+    sq = p[:, 0] * p[:, 0]
+    for k in range(1, a.shape[1]):
+        sq = torch.addcmul(sq, p[:, k], p[:, k])
+    return sq
+
+
+def _packed(a: torch.Tensor, last: torch.Tensor, multiple: int,
+            negate: bool) -> torch.Tensor:
+    """The kernel's [K', 8] float32 layout of [K, F] points: the
+    coordinates (negated for columns), zeros up to 7 (the kernel always
+    takes 7 terms; a zero term adds an exact 0), `last` (float64,
+    rounded once); NaN rows up to a multiple of `multiple`."""
+    k, f = a.shape
+    out = torch.full((-(-k // multiple) * multiple, _PTS_WIDTH),
+                     float("nan"), dtype=torch.float32, device=a.device)
+    body = out[:k]
+    body[:, :f] = a
+    if negate:
+        body[:, :f].neg_()
+    body[:, f:_PTS_WIDTH - 1] = 0.0
+    body[:, _PTS_WIDTH - 1] = last
+    return out
+
+
+def _pack_pass(rows: torch.Tensor, points: torch.Tensor,
+               flags: torch.Tensor, eps: float, row_multiple: int,
+               col_multiple: int):
+    """(packed rows, packed columns) of one pass. A row packs
+    lim = (eps² − |t|²)/2, a column h = |x|²/2 (NaN where the flag is
+    off or the norm is not finite), so the kernel's test is
+    h − t·x ≤ lim (see the source's note on rounding)."""
+    nan = torch.tensor(float("nan"), dtype=torch.float64,
+                       device=rows.device)
+    sq_rows = _sq_norms(rows)
+    sq_pts = sq_rows if points is rows else _sq_norms(points)
+    lim = torch.where(sq_rows <= _F32_MAX, (eps * eps - sq_rows) * 0.5, nan)
+    half = torch.where((sq_pts <= _F32_MAX) & flags, sq_pts * 0.5, nan)
+    return (_packed(rows, lim, row_multiple, negate=False),
+            _packed(points, half, col_multiple, negate=True))
+
+
+def _pairs_kernel(rows: torch.Tensor, points: torch.Tensor,
+                  flags: torch.Tensor, eps: float,
+                  reach: bool) -> torch.Tensor:
+    """One launch of csrc/points_pairs.cu: int64 neighbour counts of
+    `rows` among the `flags` points (count mode), or whether each row
+    has a `flags` point within eps (reach mode, bool)."""
+    global points_launches
+    m = rows.shape[0]
+    if m == 0 or points.shape[0] == 0:
+        return torch.zeros(m, dtype=torch.bool if reach else torch.int64,
+                           device=rows.device)
+    fn = _points_library()
+    row_pack, col_pack = _pack_pass(rows, points, flags, eps,
+                                    _PTS_BLOCK_ROWS[reach], _PTS_TILE)
+    out = torch.empty(m, dtype=torch.uint8 if reach else torch.int64,
+                      device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(row_pack.data_ptr(), row_pack.shape[0], m,
+                 col_pack.data_ptr(), col_pack.shape[0], int(reach),
+                 out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"points_pairs kernel launch failed: CUDA "
+                           f"error {err}")
+    with _launch_lock:
+        points_launches += 1
+    return out.view(torch.bool) if reach else out
+
+
 def points_neighbour_counts(rows: torch.Tensor, points: torch.Tensor,
                             valid: torch.Tensor, eps: float,
                             block: int = 1024) -> torch.Tensor:
@@ -292,46 +449,88 @@ def points_neighbour_counts(rows: torch.Tensor, points: torch.Tensor,
     valid points of `points` ([N, F] float32, `valid` [N] bool) lie
     within eps — itself included when it is one of them. int64 [M].
 
-    Rows go in [block, N] tiles (M padded to a multiple of block), so
+    CUDA tensors: one launch of the kernel (`_check_points` says what
+    it takes; anything else raises). CPU tensors: the plain version,
+    rows in [block, N] tiles (M padded to a multiple of block), so
     every distance product has the same shape whichever rows a caller
-    passes: the one-device pass (rows = points) and a shard's pass
-    over its row block (parallel.tad_sharded) compute each pair the
-    same way. TF32 is switched off first (see dbscan_points_noise)."""
+    passes. Either way the one-device pass (rows = points) and a
+    shard's pass over its row block (parallel.tad_sharded) compute each
+    pair the same way. TF32 is switched off first (see
+    dbscan_points_noise). The span `dbscan.count_pass` carries the
+    `route`, "kernel" or "torch"."""
     torch.backends.cuda.matmul.allow_tf32 = False
     m = rows.shape[0]
+    route = _route(rows, points, valid)
     with _trace.span("dbscan.count_pass", rows=m, points=points.shape[0],
-                     block=block):
-        rows = _pad_rows(rows, block)
-        x2 = (points * points).sum(-1)
-        eps2 = eps * eps
-        counts = torch.empty(rows.shape[0], dtype=torch.int64,
-                             device=rows.device)
-        for i in range(0, rows.shape[0], block):
-            w = _within(rows[i:i + block], points, x2, eps2)
-            w &= valid[None, :]
-            counts[i:i + block] = w.sum(-1)
+                     block=block, route=route):
+        if route == "kernel":
+            return _pairs_kernel(rows, points, valid, eps, reach=False)
+        return _counts_tiles(rows, points, valid, eps, block)
+
+
+def _counts_tiles(rows: torch.Tensor, points: torch.Tensor,
+                  valid: torch.Tensor, eps: float,
+                  block: int) -> torch.Tensor:
+    """The plain version of the count pass, on any device: [block, N]
+    tiles."""
+    m = rows.shape[0]
+    rows = _pad_rows(rows, block)
+    x2 = (points * points).sum(-1)
+    eps2 = eps * eps
+    counts = torch.empty(rows.shape[0], dtype=torch.int64,
+                         device=rows.device)
+    for i in range(0, rows.shape[0], block):
+        w = _within(rows[i:i + block], points, x2, eps2)
+        w &= valid[None, :]
+        counts[i:i + block] = w.sum(-1)
     return counts[:m]
 
 
 def points_reachable(rows: torch.Tensor, points: torch.Tensor,
-                     core: torch.Tensor, eps: float,
-                     block: int = 1024) -> torch.Tensor:
+                     core: torch.Tensor, eps: float, block: int = 1024,
+                     *, row_core: torch.Tensor) -> torch.Tensor:
     """The reach pass: for each of `rows`, whether a core point of
-    `points` (`core` [N] bool) lies within eps. bool [M]; tiled as
-    `points_neighbour_counts`."""
+    `points` (`core` [N] bool) lies within eps. bool [M]; routed and
+    tiled as `points_neighbour_counts`.
+
+    `row_core` ([M] bool) gives the rows' own core flags: a core row is
+    True without being evaluated (it is within eps of itself, and noise
+    is false for it whatever this pass says), and only the others are
+    compacted and evaluated. The span's `rows` is the number
+    evaluated."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    route = _route(rows, points, core)
+    with _trace.span("dbscan.reach_pass", rows=rows.shape[0],
+                     points=points.shape[0], block=block,
+                     route=route) as sp:
+        open_rows = torch.nonzero(~row_core)[:, 0]
+        sp.attrs["rows"] = len(open_rows)
+        reachable = row_core.clone()
+        if route == "kernel":
+            got = _pairs_kernel(rows[open_rows], points, core, eps,
+                                reach=True)
+        else:
+            got = _reachable_tiles(rows[open_rows], points, core, eps,
+                                   block)
+        reachable[open_rows] = got
+    return reachable
+
+
+def _reachable_tiles(rows: torch.Tensor, points: torch.Tensor,
+                     core: torch.Tensor, eps: float,
+                     block: int) -> torch.Tensor:
+    """The plain version of the reach pass, on any device: [block, N]
+    tiles."""
     m = rows.shape[0]
-    with _trace.span("dbscan.reach_pass", rows=m, points=points.shape[0],
-                     block=block):
-        rows = _pad_rows(rows, block)
-        x2 = (points * points).sum(-1)
-        eps2 = eps * eps
-        reachable = torch.empty(rows.shape[0], dtype=torch.bool,
-                                device=rows.device)
-        for i in range(0, rows.shape[0], block):
-            w = _within(rows[i:i + block], points, x2, eps2)
-            w &= core[None, :]
-            reachable[i:i + block] = w.any(-1)
+    rows = _pad_rows(rows, block)
+    x2 = (points * points).sum(-1)
+    eps2 = eps * eps
+    reachable = torch.empty(rows.shape[0], dtype=torch.bool,
+                            device=rows.device)
+    for i in range(0, rows.shape[0], block):
+        w = _within(rows[i:i + block], points, x2, eps2)
+        w &= core[None, :]
+        reachable[i:i + block] = w.any(-1)
     return reachable[:m]
 
 
@@ -340,21 +539,26 @@ def dbscan_points_noise(points: torch.Tensor, valid: torch.Tensor,
                         block: int = 1024) -> torch.Tensor:
     """Noise flags [N] bool for [N, F] float points (`valid` masks
     padding), on the points' device. Exact O(N^2) pairwise
-    computation, O(N*block) memory: the count pass, core flags, the
-    reach pass.
+    computation: the count pass, core flags, the reach pass over the
+    non-core points. On CUDA tensors each pass is one kernel launch
+    with O(N) memory; on CPU tensors, [block, N] tiles (the points
+    padded to a multiple of block), O(N*block) memory.
 
-    The distance product runs in full float32: the reference asks XLA
-    for `Precision.HIGHEST`, and TF32 would keep ~10 mantissa bits of
-    products of ~scale² and swamp eps². So each pass switches TF32 off
-    for CUDA matmuls (process-wide, as ops/sketch.py does at import)
-    before its first product, whoever turned it on."""
-    points = points.to(torch.float32)
+    Full float32 throughout: the reference asks XLA for
+    `Precision.HIGHEST`, and TF32 would keep ~10 mantissa bits of
+    products of ~scale² and swamp eps². The kernel uses no tensor
+    cores; each pass still switches TF32 off for CUDA matmuls
+    (process-wide, as ops/sketch.py does at import), whoever turned it
+    on."""
+    points = points.to(torch.float32).contiguous()
     valid = valid.to(torch.bool)
     n = points.shape[0]
-    points = _pad_rows(points, block)
-    valid = _pad_rows(valid, block)
+    if points.device.type == "cpu":
+        points = _pad_rows(points, block)
+        valid = _pad_rows(valid, block)
     counts = points_neighbour_counts(points, points, valid, eps, block)
     core = (counts >= min_samples) & valid
-    reachable = points_reachable(points, points, core, eps, block)
+    reachable = points_reachable(points, points, core, eps, block,
+                                 row_core=core)
     noise = valid & ~core & ~reachable
     return noise[:n]

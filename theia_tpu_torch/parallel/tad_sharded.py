@@ -209,7 +209,9 @@ def make_sharded_points_dbscan(mesh: Mesh, eps: float,
     (theia_tpu/parallel/tad_sharded.py:183-186), 512 GiB at N = 2^20
     and k = 8; each shard here runs the one-device path's tiled passes
     (`points_neighbour_counts`, `points_reachable`) over its row
-    block, with the same per-pair arithmetic, so the flags agree with
+    block, with the same per-pair arithmetic (on a card, one launch of
+    the same kernel a pass; the reach pass evaluates only the shard's
+    non-core rows, `row_core`), so the flags agree with
     `dbscan_points_noise` by construction.
 
     Returns fn(points [N, F], valid [N] bool) → noise [N] bool on the
@@ -222,7 +224,7 @@ def make_sharded_points_dbscan(mesh: Mesh, eps: float,
     devs = list(mesh.devices.flat)
 
     def fn(points, valid):
-        points = _tensor(points).to(torch.float32)
+        points = _tensor(points).to(torch.float32).contiguous()
         valid = _tensor(valid).to(torch.bool)
         if points.shape[0] % len(devs):
             raise ValueError(f"{points.shape[0]} points do not divide "
@@ -240,7 +242,8 @@ def make_sharded_points_dbscan(mesh: Mesh, eps: float,
             for p, pa, va, v in zip(pts_loc, pts_all, valid_all,
                                     valid_loc)]
         core_all = all_gather(core_loc)
-        noise = [v & ~c & ~points_reachable(p, pa, ca, eps, block)
+        noise = [v & ~c & ~points_reachable(p, pa, ca, eps, block,
+                                            row_core=c)
                  for p, pa, ca, v, c in zip(pts_loc, pts_all, core_all,
                                             valid_loc, core_loc)]
         return _assemble_rows(noise)

@@ -359,8 +359,15 @@ def main(argv=None) -> None:
     # the support bundle's runner-log source).
     from ..obs import trace
     from ..ops import dbscan, fused_detector
-    kernels = {"B1": fused_detector, "B2": dbscan}
-    before = {name: mod.launches for name, mod in kernels.items()}
+    kernels = {"B1": (fused_detector, "launches"),
+               "B2": (dbscan, "launches"),
+               "points": (dbscan, "points_launches")}
+
+    def counts():
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in kernels.items()}
+
+    before = counts()
     with trace.span("runner.job", job=args.job, id=args.id or ""):
         job_id = runners[args.job](args)
     for op, rec in trace.slowest().items():
@@ -368,9 +375,8 @@ def main(argv=None) -> None:
               file=sys.stderr)
     # the child's counterpart of the trace summary for the card: its
     # device, and each hand-written kernel's launches in this job
-    moved = [f"{name} launches {mod.launches - before[name]}"
-             for name, mod in kernels.items()
-             if mod.launches != before[name]]
+    moved = [f"{name} launches {n - before[name]}"
+             for name, n in counts().items() if n != before[name]]
     print(", ".join([f"device {args.device}"] + moved), file=sys.stderr)
     print(json.dumps({"id": job_id, "state": "COMPLETED"}))
 
