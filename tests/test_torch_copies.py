@@ -231,7 +231,12 @@ DERIVED = {
                             "device=, or its sharded passes over a "
                             "mesh of torch devices (one controller)",
         "run_spatial": "takes device=, resolved when no mesh runs; "
-                       "mesh 'auto' is utils.device.auto_mesh",
+                       "mesh 'auto' is utils.device.auto_mesh; reads "
+                       "only SPATIAL_COLUMNS and spans the read "
+                       "(sad.read)",
+        "SPATIAL_COLUMNS": "the four columns run_spatial reads from "
+                           "the store; the reference reads every "
+                           "column",
     },
     "parallel/engine.py": {
         "job_mesh": "counts torch.cuda.device_count() in place of "

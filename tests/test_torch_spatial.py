@@ -35,6 +35,7 @@ from theia_tpu_torch.data.synth import generate_flows as port_generate
 from theia_tpu_torch.ops import dbscan as port_dbscan
 from theia_tpu_torch.schema import FLOW_SCHEMA, ColumnarBatch
 from theia_tpu_torch.store import FlowDatabase
+from theia_tpu_torch.store.parts import PART_FORMAT_SORTED
 from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
@@ -227,3 +228,107 @@ def test_points_noise_on_card_matches_cpu_outside_the_eps_band():
         emb.cuda(), torch.arange(len(emb)).cuda(), 1.0, 4)
     sure = ~ambiguous.cpu()
     assert torch.equal(got[sure], want[sure])
+
+
+#: flowEndSeconds of the synth flows run 1609459200..08: this window
+#: keeps the rows that end before 1609459205 and drops the one-off rows
+#: (time 0)
+WINDOWS = {"all": (None, None), "cut": (1609459190, 1609459205)}
+
+
+def _spatial_store(kind, tmp_path):
+    """A store of each engine the job reads: flat; parts with a part
+    directory (sealed sorted parts, the memtable's tail); the same with
+    every part demoted to the cold tier (read from its file); three
+    shards. Synth flows in 100-row blocks, then the one-off rows."""
+    from theia_tpu_torch.store.sharded import ShardedFlowDatabase
+    if kind == "flat":
+        db = FlowDatabase(engine="flat")
+    elif kind == "sharded":
+        db = ShardedFlowDatabase(n_shards=3, engine="flat")
+    else:
+        db = FlowDatabase(engine="parts", parts_config={"memtable_rows": 128},
+                          parts_dir=str(tmp_path / "parts"))
+    flows = port_generate(SynthConfig(n_series=61, points_per_series=9,
+                                      seed=17))
+    for lo in range(0, len(flows), 100):
+        db.insert_flows(flows.take(np.arange(lo, min(lo + 100,
+                                                     len(flows)))))
+    db.insert_flows(ColumnarBatch.from_rows(_one_off_rows(), FLOW_SCHEMA))
+    if kind.startswith("parts"):
+        table = db.flows
+        assert len(table._parts) > 1 and table._memtable_len
+        assert all(p.fmt == PART_FORMAT_SORTED and p.rowid is not None
+                   for p in table._parts)
+        if kind == "parts_cold":
+            table.demote_oldest(0)
+            assert all(p.tier == "cold" for p in table._parts)
+    return db
+
+
+@pytest.mark.parametrize("window", sorted(WINDOWS))
+@pytest.mark.parametrize("kind", ["flat", "parts", "parts_cold",
+                                  "sharded"])
+def test_run_spatial_reads_four_columns_and_writes_the_full_reads_rows(
+        kind, window, tmp_path, monkeypatch):
+    """run_spatial asks the store for SPATIAL_COLUMNS alone, in a
+    `sad.read` span, and writes the `spatialnoise` rows, in their
+    order, that spatial_outliers finds over every column of the same
+    window."""
+    from theia_tpu_torch.obs import trace
+    db = _spatial_store(kind, tmp_path)
+    start, end = WINDOWS[window]
+    full = db.flows.select(start, end)
+    assert len(full.column_names) == len(FLOW_SCHEMA)
+    n_all = len(db.flows.select(None, None))
+    assert 0 < len(full) <= n_all
+    assert (len(full) < n_all) == (window == "cut")
+    want = port_spatial.spatial_outliers(full, device="cpu")
+    assert want
+
+    calls, select = [], db.flows.select
+    written, insert_rows = [], db.spatialnoise.insert_rows
+
+    def spy(*a, **kw):
+        calls.append((a, kw))
+        return select(*a, **kw)
+
+    def write(rows):
+        written.extend(rows)
+        return insert_rows(rows)
+
+    monkeypatch.setattr(db.flows, "select", spy)
+    monkeypatch.setattr(db.spatialnoise, "insert_rows", write)
+    capture = trace.start_capture()
+    try:
+        port_spatial.run_spatial(db, start_time=start, end_time=end,
+                                 spatial_id="s", now=3, device="cpu")
+    finally:
+        trace.stop_capture(capture)
+    assert calls == [((start, end),
+                      {"columns": port_spatial.SPATIAL_COLUMNS})]
+    (read,) = [r for r in capture.records if r["op"] == "sad.read"]
+    assert (read["columns"], read["rows"]) == (4, len(full))
+    # the rows as the job wrote them (a sharded table scans in shard
+    # order), then as the table holds them
+    assert [{k: v for k, v in r.items() if k not in ("id", "timeCreated")}
+            for r in written] == want
+    assert _noise_rows(db) == sorted(tuple(sorted(r.items()))
+                                     for r in written)
+
+
+def test_embedding_and_noise_decode_read_only_spatial_columns():
+    """flow_embeddings and spatial_outliers over a batch that holds
+    SPATIAL_COLUMNS alone: the embedding bit-equal, the noise flows
+    equal and in order, to theirs over all 52 columns."""
+    flows = port_generate(SynthConfig(n_series=61, points_per_series=9,
+                                      seed=17))
+    flows = ColumnarBatch.concat([flows, ColumnarBatch.from_rows(
+        _one_off_rows(), FLOW_SCHEMA, flows.dicts)])
+    four = flows.select(port_spatial.SPATIAL_COLUMNS)
+    assert list(four.column_names) == list(port_spatial.SPATIAL_COLUMNS)
+    np.testing.assert_array_equal(port_spatial.flow_embeddings(four),
+                                  port_spatial.flow_embeddings(flows))
+    want = port_spatial.spatial_outliers(flows, device="cpu")
+    assert want
+    assert port_spatial.spatial_outliers(four, device="cpu") == want

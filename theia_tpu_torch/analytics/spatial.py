@@ -21,7 +21,8 @@ a mesh (parallel.make_sharded_points_dbscan). Only `spatial_outliers`
 and `run_spatial` differ: they take `device=` for the one-device pass,
 and `spatial_outliers` times its copy to the device, the result's fetch
 and the noise flows' decode as spans (`sad.to_device`, `sad.fetch`,
-`sad.decode`, obs/trace.py).
+`sad.decode`, obs/trace.py). `run_spatial` reads only SPATIAL_COLUMNS
+from the store, in a `sad.read` span.
 """
 
 from __future__ import annotations
@@ -47,6 +48,11 @@ DEFAULT_EPS = 1.0
 DEFAULT_MIN_SAMPLES = 4
 
 EMBED_DIM = 7   # 2 src + 2 dst + 2 port + volume
+
+#: the flow columns the embedding and the noise rows read: the job
+#: asks the store for these alone (4 of the schema's 52)
+SPATIAL_COLUMNS = ("sourceIP", "destinationIP",
+                   "destinationTransportPort", "octetDeltaCount")
 
 
 def _hash01(codes: np.ndarray, seed: int) -> np.ndarray:
@@ -164,7 +170,10 @@ def run_spatial(db,
 
     if progress:
         progress.stage("read")
-    flows = db.flows.select(start_time, end_time)
+    with _trace.span("sad.read", columns=len(SPATIAL_COLUMNS)) as sp:
+        flows = db.flows.select(start_time, end_time,
+                                columns=SPATIAL_COLUMNS)
+        sp.attrs["rows"] = len(flows)
     if len(flows) == 0:
         if progress:
             progress.done()
