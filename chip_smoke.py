@@ -164,6 +164,14 @@ def card_name_and_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def launch_count(name: str) -> int:
+    """Launches of kernel library `name` since import
+    (theia_tpu_torch/ops/_build.py); a phase takes one before and one
+    after what it counts."""
+    from theia_tpu_torch.ops import _build
+    return _build.launches().get(name, 0)
+
+
 def graph_ms(fn, n: int = TIMED_LAUNCHES, replays: int = 5) -> float:
     """Device time of one call of `fn`: n calls captured in a CUDA
     graph, replayed back to back and timed with CUDA events (median
@@ -265,10 +273,8 @@ def compare_scan(rng, t: int, u: int, live: int, device) -> dict:
     before = StreamState(*(a.clone() for a in state))
     s_k = StreamState(*(a.clone() for a in state))
     s_p = StreamState(*(a.clone() for a in state))
-    launches, tiles = fd.launches, fd.tiles
     anom_k = fd.stream_scan(s_k, slots, x, active)
     anom_p = fd._stream_half_plain(s_p, slots, x, active, 0.5)
-    fd.launches, fd.tiles = launches, tiles   # comparison launches don't count
     if device.type == "cuda":
         torch.cuda.synchronize()
     max_err = 0.0
@@ -298,7 +304,6 @@ def compare_scan(rng, t: int, u: int, live: int, device) -> dict:
         # host, so it cannot be captured: per-call event time
         row["plain_ms"] = cuda_median_ms(
             lambda: fd._stream_half_plain(s_t, slots, x, active, 0.5))
-        fd.launches, fd.tiles = launches, tiles
     row["bound_ms"], row["bound_by"] = bound_ms(t, u, live)
     return row
 
@@ -352,9 +357,9 @@ def phase_b1_grouped(modal: dict, device) -> dict:
                 for st, *rest in g]
 
     k_group, p_group = copies(group), copies(group)
-    launches, tiles = fd.launches, fd.tiles
+    launches = launch_count("stream_scan")
     anom_k = fd.stream_scan_grouped(k_group)
-    group_launches = fd.launches - launches
+    group_launches = launch_count("stream_scan") - launches
     anom_p = [fd._stream_half_plain(*tile, 0.5) for tile in p_group]
     torch.cuda.synchronize()
     for n, (shape, kt, pt, ak, ap) in enumerate(
@@ -378,7 +383,6 @@ def phase_b1_grouped(modal: dict, device) -> dict:
     host = {"grouped": host_us(grouped), "one_tile": host_us(singles)}
     plain_ms = cuda_median_ms(
         lambda: [fd._stream_half_plain(*tile, 0.5) for tile in eight])
-    fd.launches, fd.tiles = launches, tiles
     one_bound, by = bound_ms(*shapes[0])
     return {"tiles": len(shapes), "launches": group_launches,
             "bit_exact": True, "max_abs_err": 0.0,
@@ -523,9 +527,10 @@ def phase_main_path(blocks, device) -> dict:
     im = IngestManager(None, n_shards=N_SHARDS, engine="fused",
                        device=device)
     try:
-        fd.launches = fd.tiles = 0
+        launches, b1_tiles = launch_count("stream_scan"), fd.tiles
         run = drive(im, blocks)
-        launches, b1_tiles = fd.launches, fd.tiles
+        launches = launch_count("stream_scan") - launches
+        b1_tiles = fd.tiles - b1_tiles
         eng = im._fused
         steps, coalesced = eng.steps, eng.coalesced_blocks
         device_ms = list(eng.device_ms)
@@ -848,11 +853,10 @@ def compare_dbscan(s: int, t: int, device) -> dict:
     xt = torch.tensor(x, device=device)
     x64 = xt.double()
     mt = torch.tensor(m, device=device)
-    launches = dbscan.launches
     got = dbscan.dbscan_noise_cuda(xt, mt)
     got64 = dbscan.dbscan_noise_cuda(x64, mt)
     want = dbscan.dbscan_noise(xt, mt)
-    dbscan.launches = launches      # comparison launches don't count
+    launches = launch_count("dbscan_noise")   # after the comparison's
     torch.cuda.synchronize()
     for name, flags in (("float32", got), ("float64", got64)):
         if not torch.equal(flags, want):
@@ -889,10 +893,8 @@ def compare_dbscan(s: int, t: int, device) -> dict:
         row["routes"][route] = {"bit_exact": True,
                                 "ms": graph_ms(lambda: fn(xt, mt))}
     # launches the wrapper counted for this shape's checks and timing
-    # (graph replays re-run the captured ones uncounted). They are not
-    # the TAD path's and are taken back out.
-    row["counted_launches"] = dbscan.launches - launches
-    dbscan.launches = launches
+    # (graph replays re-run the captured ones uncounted)
+    row["counted_launches"] = launch_count("dbscan_noise") - launches
     row["bound_ms"], row["bound_by"] = b2_bound_ms(
         s, t, pairs["pairs_needed"])
     row["bound_full_ms"], row["bound_full_by"] = b2_bound_ms(
@@ -925,7 +927,6 @@ def phase_dbscan_special(device) -> dict:
         x, m = dbscan_special_inputs(s + t, s, t)
         xt, mt = torch.tensor(x, device=device), torch.tensor(m, device=device)
         want = dbscan.dbscan_noise(xt, mt)
-        launches = dbscan.launches
         routes = {"wrapper": dbscan.dbscan_noise_cuda, **b2_routes(t)}
         for route, fn in routes.items():
             for xin in (xt, xt.double()):
@@ -936,7 +937,6 @@ def phase_dbscan_special(device) -> dict:
                         f"B2 {route} differs from plain on special values "
                         f"at [{s}, {t}] ({xin.dtype}): "
                         f"{int((got != want).sum())} flags")
-        dbscan.launches = launches
         out[f"{s}x{t}"] = {"bit_exact": True, "flags": int(want.sum()),
                            "row2_flags": want[2, :9].tolist()}
     return out
@@ -1011,7 +1011,6 @@ def phase_tad(flows, device) -> dict:
     import torch
     from theia_tpu_torch.analytics.series import TadQuerySpec, build_series
     from theia_tpu_torch.analytics.tad import detect_anomalies
-    from theia_tpu_torch.ops import dbscan
 
     # The first build_series builds the native series builder (g++):
     # set-up, timed apart from tensorize.
@@ -1037,12 +1036,12 @@ def phase_tad(flows, device) -> dict:
            "algos": {}}
     for algo in TAD_ALGOS:
         with ScoreTimer() as timer:
-            dbscan.launches = 0
+            launches = launch_count("dbscan_noise")
             t0 = time.perf_counter()
             rows = detect_anomalies(batch, algo, f"smoke-{algo}", now=0,
                                     refit_every=1, device=device)
             total = time.perf_counter() - t0
-            launches = dbscan.launches
+            launches = launch_count("dbscan_noise") - launches
         missed = missed_spikes(flows, TAD_SERIES, rows)
         out["algos"][algo] = {
             "score_s": timer.seconds, "score_device_ms": timer.device_ms,
@@ -1360,9 +1359,10 @@ def phase_manager_path(blocks, device) -> dict:
         before = http_json(port, "/healthz")
         tiles0 = sum(eng.tiles.values())
         eng.alert_latency_s.clear()
-        fd.launches = fd.tiles = 0
+        launches, b1_tiles = launch_count("stream_scan"), fd.tiles
         run = send_blocks(port, blocks, PRODUCERS, "p")
-        launches, b1_tiles = fd.launches, fd.tiles
+        launches = launch_count("stream_scan") - launches
+        b1_tiles = fd.tiles - b1_tiles
         after = http_json(port, "/healthz")
         n_tiles = sum(eng.tiles.values()) - tiles0
         # every block of the window that raised connection alerts (the
@@ -1572,18 +1572,17 @@ def phase_manager_tad(blocks, flows, device, snapshot: str,
     SAD's points and flags go into `kept`, for manager_subprocess.
     Last, the `theia` CLI drives the same manager (phase_cli)."""
     import tempfile
-    from theia_tpu_torch.ops import dbscan
 
     def drive(port):
         ingest = send_blocks(port, blocks, PRODUCERS, "tad")
         out = {"rows": ingest["rows"], "ingest_s": ingest["seconds"],
                "store_total_rows": total_rows(port), "jobs": {}}
         for algo in ("EWMA", "DBSCAN"):
-            dbscan.launches = 0
+            launches = launch_count("dbscan_noise")
             t0 = time.perf_counter()
             doc = run_job(port, algo)
             polled_s = time.perf_counter() - t0
-            launches = dbscan.launches
+            launches = launch_count("dbscan_noise") - launches
             st = doc["status"]
             rows = doc.get("stats", [])
             kept[f"tad-{algo}"] = doc
@@ -1751,7 +1750,6 @@ def phase_cli(port: int, device) -> dict:
     import tempfile
     import urllib.parse
     from theia_tpu_torch import __version__
-    from theia_tpu_torch.ops import dbscan
     from theia_tpu_torch.ops import fused_detector as fd
     from theia_tpu_torch.query import kernels as qk
     from theia_tpu_torch.query import plan_from_params
@@ -1779,11 +1777,11 @@ def phase_cli(port: int, device) -> dict:
         # ingest: B1 from the CLI's blocks
         steps0 = http_json(port, "/healthz")["ingest"]["engine"]["steps"]
         rows0 = total_rows(port)
-        fd.launches = fd.tiles = 0
+        b1, b1_tiles = launch_count("stream_scan"), fd.tiles
         text = run("ingest", "ingest", "--stream", "cli", "--batches",
                    str(CLI_BATCHES), "--series", str(CLI_SERIES),
                    "--points", str(CLI_POINTS))
-        b1, b1_tiles = fd.launches, fd.tiles
+        b1, b1_tiles = launch_count("stream_scan") - b1, fd.tiles - b1_tiles
         steps = (http_json(port, "/healthz")["ingest"]["engine"]["steps"]
                  - steps0)
         acked = int(re.search(r"acked (\d+) rows", text).group(1))
@@ -1805,10 +1803,10 @@ def phase_cli(port: int, device) -> dict:
         end = datetime.datetime.fromtimestamp(
             DD_DAY0 * 86400, datetime.timezone.utc).strftime(
                 "%Y-%m-%d %H:%M:%S")
-        dbscan.launches = 0
+        b2 = launch_count("dbscan_noise")
         text = run("tad_run", "tad", "run", "--algo", "DBSCAN",
                    "--end-time", end, "--wait")
-        b2 = dbscan.launches
+        b2 = launch_count("dbscan_noise") - b2
         name = re.search(r"name: (tad-[0-9a-f-]{36})", text).group(1)
         path = os.path.join(tmp, "tad.json")
         run("tad_retrieve", "tad", "retrieve", name, "-f", path)
@@ -2096,7 +2094,6 @@ def tier_run(keys, vals, device, capacity=None) -> dict:
     fused engine (`auto` on a card); with THEIA_STATE_TIER set by the
     caller, the tiers' stats come back too."""
     from theia_tpu_torch.manager.ingest import IngestManager
-    from theia_tpu_torch.ops import fused_detector as fd
     from theia_tpu_torch.store import FlowDatabase
     with environ(THEIA_DETECTOR_ENGINE="auto"):
         im = IngestManager(FlowDatabase(), n_shards=N_SHARDS,
@@ -2104,7 +2101,7 @@ def tier_run(keys, vals, device, capacity=None) -> dict:
     alerts: list = []
     n_conn = truncated = 0
     try:
-        fd.launches = 0
+        b1 = launch_count("stream_scan")
         t0 = time.perf_counter()
         for batch in tier_batches(keys, vals):
             _, conn, n = im.score_batch(batch)
@@ -2117,7 +2114,7 @@ def tier_run(keys, vals, device, capacity=None) -> dict:
         out = {"engine": im.engine_name, "rows": len(keys),
                "seconds": seconds, "rows_per_s": len(keys) / seconds,
                "connection_alerts": n_conn, "undescribed": truncated,
-               "b1_launches": fd.launches,
+               "b1_launches": launch_count("stream_scan") - b1,
                "capacity": im.shards[0].streaming.capacity,
                "dropped_series": sum(s.streaming.dropped_series
                                      for s in im.shards),
@@ -2273,7 +2270,7 @@ def compare_points(emb, device) -> dict:
         return dbscan.points_neighbour_counts(pts, pts, valid, eps)
 
     torch.cuda.synchronize()
-    launches0 = dbscan.points_launches
+    launches0 = launch_count("points_pairs")
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     counts = count()
@@ -2289,7 +2286,7 @@ def compare_points(emb, device) -> dict:
     reached = reach()
     torch.cuda.synchronize()
     out["reach_peak_bytes"] = torch.cuda.max_memory_allocated() - base
-    out["launches_one_call"] = dbscan.points_launches - launches0
+    out["launches_one_call"] = launch_count("points_pairs") - launches0
     out["count_ms"] = cuda_median_ms(count, n=POINTS_TIMED, warmup=0)
     out["reach_ms"] = cuda_median_ms(reach, n=POINTS_TIMED, warmup=0)
     out["count_kernel_ms"] = _profiled_kernel_ms(count, "points_pairs")
@@ -2310,10 +2307,11 @@ def compare_points(emb, device) -> dict:
     # the plain version on the card, once each pass
     a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     a.record()
-    counts_p = dbscan._counts_tiles(pts, pts, valid, eps, 1024)
+    counts_p = dbscan._pairs_tiles(pts, pts, valid, eps, 1024, reach=False)
     b.record()
     core_p = (counts_p >= min_samples) & valid
-    reached_p = dbscan._reachable_tiles(pts, pts, core_p, eps, 1024)
+    reached_p = dbscan._pairs_tiles(pts, pts, core_p, eps, 1024,
+                                    reach=True)
     c.record()
     c.synchronize()
     out.update(plain_count_ms=a.elapsed_time(b),
@@ -2625,7 +2623,6 @@ def drive_jobs(port: int, device, kept: dict) -> tuple:
     SAD's points and flags as `sad-points`."""
     import uuid
     import torch
-    from theia_tpu_torch.ops import dbscan
     db = live_controller().db
     out: dict = {"store_rows": total_rows(port)}
     parity: dict = {}
@@ -2649,7 +2646,7 @@ def drive_jobs(port: int, device, kept: dict) -> tuple:
             for mode in ("timed", "profiled"):
                 name = f"{prefix}-{uuid.uuid4()}"
                 torch.cuda.reset_peak_memory_stats()
-                launches0 = dbscan.points_launches
+                launches0 = launch_count("points_pairs")
                 t0 = time.perf_counter()
                 with DeviceCall(mod, attr, profile=mode == "profiled",
                                 keep=mode == "timed") as call:
@@ -2663,7 +2660,8 @@ def drive_jobs(port: int, device, kept: dict) -> tuple:
                     "device": call.summary(),
                     "max_memory_allocated":
                         torch.cuda.max_memory_allocated(),
-                    "points_launches": dbscan.points_launches - launches0,
+                    "points_launches":
+                        launch_count("points_pairs") - launches0,
                     "job_id": st["sparkApplication"]})
             name, doc, call, job = runs["timed"]
             kept[kind] = doc
@@ -3167,7 +3165,6 @@ def phase_manager_subprocess(snapshot: str, kept: dict, thread: dict,
     import tempfile
     import uuid
     import torch
-    from theia_tpu_torch.ops import fused_detector as fd
     blocks = after_blocks()
 
     def drive(port):
@@ -3271,12 +3268,13 @@ def phase_manager_subprocess(snapshot: str, kept: dict, thread: dict,
             out["deadline"]["kill_after_spawn_s"] = (
                 out["deadline"]["job_s"] - out["deadline"]["snapshot_s"])
             # (5) the manager still works
-            b1 = fd.launches
+            b1 = launch_count("stream_scan")
             alerts = connection_alerts(port)
             sent = send_blocks(port, blocks, PRODUCERS, "after-drills")
             out["after"] = {"blocks": len(blocks), "acked": sent["rows"],
                             "ack_alerts": sent["alerts"],
-                            "b1_launches": fd.launches - b1,
+                            "b1_launches":
+                                launch_count("stream_scan") - b1,
                             "connection_alerts_before": alerts,
                             "connection_alerts_after":
                                 connection_alerts(port)}
@@ -3382,7 +3380,6 @@ def md_run(run, devices) -> tuple:
     first card, so the span ends with the call's last kernel —,
     b2_launches, points_launches, peak_allocated})."""
     import torch
-    from theia_tpu_torch.ops import dbscan
     cards = sorted({torch.device(d) for d in devices
                     if torch.device(d).type == "cuda"}, key=str)
     for d in cards:
@@ -3393,11 +3390,12 @@ def md_run(run, devices) -> tuple:
             events = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
-    dbscan.launches = 0
-    dbscan.points_launches = 0
+    launches = launch_count("dbscan_noise")
+    points_launches = launch_count("points_pairs")
     t0 = time.perf_counter()
     result = run()
-    launches, points_launches = dbscan.launches, dbscan.points_launches
+    launches = launch_count("dbscan_noise") - launches
+    points_launches = launch_count("points_pairs") - points_launches
     if events is not None:
         with torch.cuda.device(cards[0]):
             events[1].record()

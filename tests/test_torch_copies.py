@@ -201,9 +201,10 @@ DERIVED = {
         "main": "resolve_device(--device) in place of the JAX_PLATFORMS "
                 "update, exiting non-zero without a card; after the "
                 "timing lines one stderr line with the device and the "
-                "B1/B2/points-kernel launches that moved, the trace "
-                "summary's counterpart for the card (the parent reads a "
-                "child's kernels only from its stderr tail)",
+                "B1/B2/points-kernel launches that moved (ops/_build.py's "
+                "counts), the trace summary's counterpart for the card "
+                "(the parent reads a child's kernels only from its "
+                "stderr tail)",
     },
     "analysis/__main__.py": {
         "run_all": "scans theia_tpu_torch/, with chip_smoke.py (the "

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from theia_tpu.ops.dbscan_pallas import dbscan_noise_pallas
+from theia_tpu_torch.ops import _build
 
 ref = importlib.import_module("theia_tpu.ops.dbscan")
 port = importlib.import_module("theia_tpu_torch.ops.dbscan")
@@ -131,11 +132,11 @@ def test_wrapper_rejects_mismatched_shapes_and_takes_empty_batches():
         port.dbscan_noise_cuda(x, torch.ones((3, 5), dtype=torch.bool))
     with pytest.raises(ValueError):
         port.dbscan_noise_cuda(x[0], torch.ones(4, dtype=torch.bool))
-    launches = port.launches
+    launches = _build.launches()
     out = port.dbscan_noise_cuda(torch.zeros((0, 4)),
                                  torch.zeros((0, 4), dtype=torch.bool))
     assert out.shape == (0, 4) and out.dtype == torch.bool
-    assert port.launches == launches     # CPU tensors launch nothing
+    assert _build.launches() == launches     # CPU tensors launch nothing
 
 
 @pytest.mark.cuda
@@ -149,9 +150,9 @@ def test_dbscan_kernel_matches_plain_on_card(s, t):
     x, mask = _inputs(s + t, s, t)
     dev = torch.device("cuda", 0)
     xt, mt = torch.tensor(x, device=dev), torch.tensor(mask, device=dev)
-    launches = port.launches
+    launches = _build.launches().get("dbscan_noise", 0)
     got = port.dbscan_noise_cuda(xt, mt)
-    assert port.launches == launches + 1
+    assert _build.launches()["dbscan_noise"] == launches + 1
     want = port.dbscan_noise(xt, mt)
     torch.cuda.synchronize()
     assert torch.equal(got, want)

@@ -27,6 +27,7 @@ from theia_tpu_torch.analytics.heavy_hitters import HeavyHitterDetector
 from theia_tpu_torch.analytics.streaming import StreamingDetector
 from theia_tpu_torch.data import synth as port_synth
 from theia_tpu_torch.manager.ingest import IngestManager
+from theia_tpu_torch.ops import _build
 from theia_tpu_torch.ops import fused_detector as fd
 from theia_tpu_torch.ops import sketch
 from theia_tpu_torch.store import FlowDatabase as PortFlowDatabase
@@ -228,7 +229,7 @@ def test_engine_tallies_the_stream_tiles_it_dispatches():
     """`tiles` counts one (T, U, live) per shard with rows per step,
     from the host plans; on the CPU no B1 kernel launches."""
     im = IngestManager(None, n_shards=2, engine="fused", device="cpu")
-    launches = fd.launches
+    launches = _build.launches()
     try:
         for _, b in _workload(range(3), n_series=100, points=4):
             im.score_batch(b)
@@ -242,7 +243,7 @@ def test_engine_tallies_the_stream_tiles_it_dispatches():
             sum(s.streaming.n_series for s in im.shards) > 0
     finally:
         im.close()
-    assert fd.launches == launches
+    assert _build.launches() == launches
 
 
 def test_dispatch_failure_fails_the_batch_not_the_engine(monkeypatch):

@@ -30,6 +30,7 @@ from theia_tpu.ops import fused_detector as ref_fd
 from theia_tpu.ops.sketch import CmsState as RefCms
 from theia_tpu.ops.sketch import KMeansState as RefKm
 from theia_tpu_torch.analytics.streaming import StreamState
+from theia_tpu_torch.ops import _build
 from theia_tpu_torch.ops import fused_detector as fd
 from theia_tpu_torch.ops.sketch import keys_tensor
 
@@ -37,11 +38,11 @@ CAP = 512
 SIZE = 256
 
 
-def _carried(rng):
-    stream = (rng.normal(5, 2, CAP).astype(np.float32),
-              rng.integers(0, 6, CAP).astype(np.int32),
-              rng.normal(5, 2, CAP).astype(np.float32),
-              rng.uniform(0, 30, CAP).astype(np.float32))
+def _carried(rng, cap=CAP):
+    stream = (rng.normal(5, 2, cap).astype(np.float32),
+              rng.integers(0, 6, cap).astype(np.int32),
+              rng.normal(5, 2, cap).astype(np.float32),
+              rng.uniform(0, 30, cap).astype(np.float32))
     counts = rng.uniform(0, 1e6, (4, 256)).astype(np.float32)
     cms = (counts, np.float32(counts[0].sum(dtype=np.float64)))
     km = (rng.normal(0, 1, (8, 4)).astype(np.float32),
@@ -56,9 +57,9 @@ def _ref_state(stream, cms, km):
         RefKm(*(jnp.asarray(a) for a in km)))
 
 
-def _inputs(rng, t, u, live):
-    slots = np.full(u, CAP, np.int32)
-    slots[:live] = np.sort(rng.choice(CAP, live, replace=False))
+def _inputs(rng, t, u, live, cap=CAP):
+    slots = np.full(u, cap, np.int32)
+    slots[:live] = np.sort(rng.choice(cap, live, replace=False))
     x = rng.normal(5, 3, (t, u)).astype(np.float32)
     active = rng.random((t, u)) < 0.8
     active[:, live:] = False
@@ -172,9 +173,9 @@ def test_stream_scan_checks_its_inputs():
     with pytest.raises(ValueError):
         fd.stream_scan(state, slots, torch.zeros((2, 8))[:, ::2],
                        torch.zeros((2, 4), dtype=torch.bool))
-    launches = fd.launches
+    launches = _build.launches()
     fd.stream_scan(state, slots, x, active)
-    assert fd.launches == launches   # CPU: no kernel launch
+    assert _build.launches() == launches   # CPU: no kernel launch
 
 
 def test_gather_and_restore_state_match_reference():
@@ -232,9 +233,9 @@ def test_stream_scan_kernel_matches_plain_on_card(t, u):
     args = [torch.tensor(a, device=dev) for a in (slots, x, active)]
     s_k = StreamState(*(a.to(dev) for a in base))
     s_p = StreamState(*(a.to(dev) for a in base))
-    launches = fd.launches
+    launches = _build.launches().get("stream_scan", 0)
     anom_k = fd.stream_scan(s_k, *args)
-    assert fd.launches == launches + 1
+    assert _build.launches()["stream_scan"] == launches + 1
     anom_p = fd._stream_half_plain(s_p, *args, 0.5)
     torch.cuda.synchronize()
     assert torch.equal(anom_k, anom_p)
@@ -252,8 +253,8 @@ MIXED = [(1, 64, 40), (2, 256, 200), (3, 64, 64), (8, 128, 100),
 def _scan_tiles(rng, spec, cap=CAP):
     tiles = []
     for t, u, live in spec:
-        stream, _, _ = _carried(rng)
-        slots, x, active = _inputs(rng, t, u, live)[:3]
+        stream, _, _ = _carried(rng, cap)
+        slots, x, active = _inputs(rng, t, u, live, cap)[:3]
         tiles.append((StreamState(*(torch.from_numpy(a.copy())
                                     for a in stream)),
                       torch.from_numpy(slots), torch.from_numpy(x),
@@ -274,9 +275,9 @@ def test_grouped_matches_plain_tile_by_tile(n_copies):
     rng = np.random.default_rng(41 + n_copies)
     tiles = _scan_tiles(rng, MIXED * n_copies)
     want_tiles = _clone_tiles(tiles)
-    launches, counted = fd.launches, fd.tiles
+    launches, counted = _build.launches(), fd.tiles
     got = fd.stream_scan_grouped(tiles)
-    assert (fd.launches, fd.tiles) == (launches, counted)
+    assert (_build.launches(), fd.tiles) == (launches, counted)
     want = [fd._stream_half_plain(*tile, 0.5) for tile in want_tiles]
     assert len(got) == len(tiles)
     for (st, _, x, _), (st_w, *_), g, w in zip(tiles, want_tiles, got,
@@ -388,11 +389,11 @@ def test_grouped_kernel_matches_plain_on_card():
     spec = MIXED * 3 + [(1, 4096, 3000), (16, 512, 400)]
     tiles = [(StreamState(*(a.to(dev) for a in st)), *(v.to(dev)
                                                        for v in rest))
-             for st, *rest in _scan_tiles(rng, spec)]
+             for st, *rest in _scan_tiles(rng, spec, cap=4096)]
     plain = _clone_tiles(tiles)
-    launches, counted = fd.launches, fd.tiles
+    launches, counted = _build.launches().get("stream_scan", 0), fd.tiles
     got = fd.stream_scan_grouped(tiles)
-    assert fd.launches == launches + 2
+    assert _build.launches()["stream_scan"] == launches + 2
     assert fd.tiles == counted + len(spec)
     want = [fd._stream_half_plain(*tile, 0.5) for tile in plain]
     torch.cuda.synchronize()

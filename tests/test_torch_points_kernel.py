@@ -26,7 +26,7 @@ from theia_tpu_torch.analytics import spatial as port_spatial
 from theia_tpu_torch.data.synth import SynthConfig
 from theia_tpu_torch.data.synth import generate_flows as port_generate
 from theia_tpu_torch.obs import trace
-from theia_tpu_torch.ops import dbscan
+from theia_tpu_torch.ops import _build, dbscan
 from test_torch_analysis import port_lockdep_clean  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
@@ -201,7 +201,7 @@ def test_row_core_gives_the_same_noise_on_the_plain_path(seed, n, lo, hi,
     counts = dbscan.points_neighbour_counts(pts, pts, valid, 1.0, block)
     core = (counts >= 4) & valid
     rows, c, v = pts[lo:hi], core[lo:hi], valid[lo:hi]
-    without = dbscan._reachable_tiles(rows, pts, core, 1.0, block)
+    without = dbscan._pairs_tiles(rows, pts, core, 1.0, block, reach=True)
     with_core = dbscan.points_reachable(rows, pts, core, 1.0, block,
                                         row_core=c)
     assert torch.equal(v & ~c & ~with_core, v & ~c & ~without)
@@ -242,10 +242,10 @@ def test_pass_spans_carry_the_route_on_the_cpu():
 
 
 def test_no_launch_on_the_cpu():
-    before = dbscan.points_launches
+    before = _build.launches()
     dbscan.dbscan_points_noise(_points(12, 100, 4),
                                torch.ones(100, dtype=torch.bool), 1.0)
-    assert dbscan.points_launches == before
+    assert _build.launches() == before
 
 
 # -- on the card ---------------------------------------------------------
@@ -303,12 +303,12 @@ def test_kernel_matches_plain_outside_the_eps_band(case, f):
     pts, valid = pts.to(dev), valid.to(dev)
     r = pts[rows].contiguous()
     got = dbscan.points_neighbour_counts(r, pts, valid, eps)
-    want = dbscan._counts_tiles(r, pts, valid, eps, 1024)
+    want = dbscan._pairs_tiles(r, pts, valid, eps, 1024, reach=False)
     core_all = (dbscan.points_neighbour_counts(pts, pts, valid, eps) >= 4) \
         & valid
     c = core_all[rows]
     reach = dbscan.points_reachable(r, pts, core_all, eps, row_core=c)
-    reach_p = dbscan._reachable_tiles(r, pts, core_all, eps, 1024)
+    reach_p = dbscan._pairs_tiles(r, pts, core_all, eps, 1024, reach=True)
     noise = valid[rows] & ~c & ~reach
     noise_p = valid[rows] & ~c & ~reach_p
     idx = torch.arange(len(pts), device=dev)[rows]
@@ -353,9 +353,9 @@ def test_sharded_flags_equal_one_device_bit_for_bit():
     # a count pass a shard, and a reach pass a shard with a non-core row
     want = 4 + sum(bool((~c).any()) for c in core.chunk(4))
     mesh = parallel.make_rows_mesh(devices=[dev] * 4)
-    before = dbscan.points_launches
+    before = _build.launches().get("points_pairs", 0)
     sharded = parallel.make_sharded_points_dbscan(mesh, eps=1.0)(pts, valid)
-    assert dbscan.points_launches - before == want
+    assert _build.launches()["points_pairs"] - before == want
     assert torch.equal(sharded.to(dev), one)
     assert one.any()
 
@@ -366,9 +366,9 @@ def test_two_launches_a_one_device_call():
     pts = _flow_embeddings(128, 3).to(dev)
     valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
     torch.backends.cuda.matmul.allow_tf32 = True
-    before = dbscan.points_launches
+    before = _build.launches().get("points_pairs", 0)
     noise = dbscan.dbscan_points_noise(pts, valid, eps=1.0)
-    assert dbscan.points_launches - before == 2
+    assert _build.launches()["points_pairs"] - before == 2
     assert not torch.backends.cuda.matmul.allow_tf32
     assert noise.any()
 

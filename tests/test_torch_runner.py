@@ -31,6 +31,7 @@ from theia_tpu_torch.data.synth import SynthConfig, generate_flows
 from theia_tpu_torch.runner.__main__ import build_parser, main, parse_time
 from theia_tpu_torch.store import FlowDatabase
 from test_torch_analysis import port_lockdep_clean  # noqa: F401
+from test_torch_build import fake_cuda  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = ["--device", "cpu"]
@@ -307,15 +308,17 @@ def test_stderr_ends_with_the_device_line(db_path, capsys):
 
 
 def test_device_line_names_the_kernels_that_launched(db_path, capsys,
-                                                     monkeypatch):
-    """Each counter that moved during the job is named with its
-    launches (here B2, as a card run's DBSCAN would move it)."""
+                                                     monkeypatch,
+                                                     fake_cuda):
+    """Each kernel whose count moved during the job is named with its
+    launches (here B2, as a card run's DBSCAN would move it: one
+    launch of a fake entry point through the launch seam)."""
     from theia_tpu_torch.analytics import tad
-    from theia_tpu_torch.ops import dbscan
+    from theia_tpu_torch.ops import _build
     real = tad.dbscan_scores
 
     def counted(*args, **kw):
-        dbscan.launches += 1
+        _build.launch("dbscan_noise", lambda stream: 0, "cuda:0")
         return real(*args, **kw)
 
     monkeypatch.setattr(tad, "dbscan_scores", counted)

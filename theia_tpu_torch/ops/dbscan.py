@@ -24,9 +24,10 @@ dtype, as the reference's XLA path on the CPU).
 embeddings (theia_tpu/ops/dbscan.py:126, which leaves it to XLA): the
 same closed-form noise test over euclidean distance, in two passes. A
 CUDA tensor takes the hand-written kernel csrc/points_pairs.cu, one
-launch a pass (the module counts `points_launches`); a CPU tensor
-takes the plain version, [block, N] tiles of torch ops with a
-full-float32 matmul. Each pass is one span (`dbscan.count_pass`,
+launch a pass; a CPU tensor takes the plain version, [block, N] tiles
+of torch ops with a full-float32 matmul. Both kernels are bound and
+launched through `_build`, which counts their launches by library
+name (`_build.launches()`). Each pass is one span (`dbscan.count_pass`,
 `dbscan.reach_pass`, obs/trace.py, attrs `rows`, `points`, `block`,
 `route`) around its launches, whether the one-device job or a shard
 (parallel/) calls it.
@@ -36,12 +37,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import torch
 
 from ..obs import trace as _trace
+from . import _build
 from .masked import masked_stddev_samp
 
 DEFAULT_EPS = 2.5e8
@@ -61,12 +62,6 @@ def dbscan_noise(x: torch.Tensor, mask: torch.Tensor,
 
 
 # -- B2: the kernel wrapper ---------------------------------------------
-
-_launch_lock = threading.Lock()
-#: B2 kernel calls since import (one per call that reached the card,
-#: whichever route; the two-pass route is two kernel launches); a call
-#: on CPU tensors runs the plain version and does not count
-launches = 0
 
 #: the kernel's constants (checked against the library when it loads):
 #: j's between two early-exit votes, to which a staged series is
@@ -120,22 +115,16 @@ def _plan(s: int, t: int) -> _Plan:
     return _Plan("one_launch" if one else "two_pass", tp, r, p, b, blocks)
 
 
-def _library():
-    from ._build import library
-    lib = library("dbscan_noise")
-    one, two = lib.dbscan_noise_one_launch, lib.dbscan_noise_two_pass
-    if one.argtypes is None:
-        got = (lib.dbscan_check(), lib.dbscan_pass_i_tile())
-        if got != (_CHECK, _PASS_I):
-            raise RuntimeError(f"dbscan_noise: the library's constants "
-                               f"{got} differ from the wrapper's")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        one.argtypes = [ptr, i32, ptr, ptr, i32, i32, i32, i32, i32,
-                        ctypes.c_float, i32, ptr]
-        two.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32,
-                        ctypes.c_float, i32, ptr]
-        one.restype = two.restype = ctypes.c_int
-    return one, two
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: each B2 route's entry point and its arguments before the stream
+_ENTRIES = {
+    "one_launch": ("dbscan_noise_one_launch",
+                   [_PTR, _I32, _PTR, _PTR, _I32, _I32, _I32, _I32, _I32,
+                    _F32, _I32]),
+    "two_pass": ("dbscan_noise_two_pass",
+                 [_PTR, _I32, _PTR, _PTR, _PTR, _I32, _I32, _F32, _I32]),
+}
+_CONSTANTS = {("dbscan_check",): _CHECK, ("dbscan_pass_i_tile",): _PASS_I}
 
 
 def _check(x: torch.Tensor, mask: torch.Tensor) -> None:
@@ -159,6 +148,8 @@ def _launch(route: str, x: torch.Tensor, mask: torch.Tensor,
     if s * t >= 2 ** 31 or -(-t // _PASS_I) > _MAX_GRID_Y:
         raise ValueError(f"dbscan_noise_cuda: [{s}, {t}] is beyond the "
                          "kernel's int32 indexing")
+    if route not in _ENTRIES:
+        raise ValueError(f"dbscan_noise_cuda: no route {route!r}")
     if route == "one_launch" and t > _ONE_MAX_T:
         raise ValueError(f"dbscan_noise_cuda: T={t} is longer than one "
                          f"block holds ({_ONE_MAX_T})")
@@ -168,28 +159,17 @@ def _launch(route: str, x: torch.Tensor, mask: torch.Tensor,
     m8 = (mask if mask.dtype == torch.bool else mask != 0) \
         .contiguous().view(torch.uint8)
     noise = torch.empty((s, t), dtype=torch.bool, device=x.device)
-    one, two = _library()
+    fn = _build.bind("dbscan_noise", *_ENTRIES[route], _CONSTANTS)
     is_double = int(x.dtype == torch.float64)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if route == "one_launch":
-            err = one(x.data_ptr(), is_double, m8.data_ptr(),
-                      noise.data_ptr(), s, t, plan.threads_per_series,
-                      plan.series_per_block, plan.points_per_thread,
-                      float(eps), int(min_samples), stream)
-        elif route == "two_pass":
-            core = torch.empty((s, t), dtype=torch.uint8, device=x.device)
-            err = two(x.data_ptr(), is_double, m8.data_ptr(),
-                      core.data_ptr(), noise.data_ptr(), s, t, float(eps),
-                      int(min_samples), stream)
-        else:
-            raise ValueError(f"dbscan_noise_cuda: no route {route!r}")
-    if err != 0:
-        raise RuntimeError(f"dbscan_noise kernel launch failed: CUDA "
-                           f"error {err}")
-    global launches
-    with _launch_lock:
-        launches += 1
+    if route == "one_launch":
+        args = (x.data_ptr(), is_double, m8.data_ptr(), noise.data_ptr(),
+                s, t, plan.threads_per_series, plan.series_per_block,
+                plan.points_per_thread, float(eps), int(min_samples))
+    else:
+        core = torch.empty((s, t), dtype=torch.uint8, device=x.device)
+        args = (x.data_ptr(), is_double, m8.data_ptr(), core.data_ptr(),
+                noise.data_ptr(), s, t, float(eps), int(min_samples))
+    _build.launch("dbscan_noise", fn, x.device, *args)
     return noise
 
 
@@ -204,8 +184,7 @@ def dbscan_noise_cuda(x: torch.Tensor, mask: torch.Tensor,
     (`dbscan_noise_pallas`). CUDA tensors launch the kernel on the
     current stream, on the route `_plan` picks (or raise); float64 x is
     rounded to float32 in the kernel. CPU tensors run the plain
-    version, `dbscan_noise`, on x cast to float32. The module's
-    `launches` counts kernel calls."""
+    version, `dbscan_noise`, on x cast to float32."""
     _check(x, mask)
     if x.device.type == "cpu":
         return dbscan_noise(x.float(), mask.bool(), eps, min_samples)
@@ -268,11 +247,6 @@ def dbscan_scores(x: torch.Tensor, mask: torch.Tensor,
 # torch ops, each tile one matmul-shaped distance evaluation, so the
 # full [N, N] distance matrix never materializes.
 
-#: points_pairs kernel launches since import (one a pass that reached
-#: the card); a pass on CPU tensors runs the plain version and does not
-#: count
-points_launches = 0
-
 #: the kernel's constants (checked against the library when it loads):
 #: floats a packed point, the widest points, columns a shared-memory
 #: tile (the packed columns' padding), rows a block in count and reach
@@ -281,6 +255,12 @@ _PTS_WIDTH = 8
 _PTS_MAX_F = 7
 _PTS_TILE = 256
 _PTS_BLOCK_ROWS = {False: 2048, True: 512}
+_PTS_ARGTYPES = [_PTR, _I32, _I32, _PTR, _I32, _I32, _PTR]
+_PTS_CONSTANTS = {("points_width",): _PTS_WIDTH,
+                  ("points_max_f",): _PTS_MAX_F,
+                  ("points_tile",): _PTS_TILE,
+                  ("points_block_rows", 0): _PTS_BLOCK_ROWS[False],
+                  ("points_block_rows", 1): _PTS_BLOCK_ROWS[True]}
 _F32_MAX = torch.finfo(torch.float32).max
 
 
@@ -350,24 +330,6 @@ def _route(rows: torch.Tensor, points: torch.Tensor,
     raise ValueError(f"points_pairs: no route for {rows.device}")
 
 
-def _points_library():
-    from ._build import library
-    lib = library("points_pairs")
-    fn = lib.points_pairs
-    if fn.argtypes is None:
-        got = (lib.points_width(), lib.points_max_f(), lib.points_tile(),
-               lib.points_block_rows(0), lib.points_block_rows(1))
-        want = (_PTS_WIDTH, _PTS_MAX_F, _PTS_TILE, _PTS_BLOCK_ROWS[False],
-                _PTS_BLOCK_ROWS[True])
-        if got != want:
-            raise RuntimeError(f"points_pairs: the library's constants "
-                               f"{got} differ from the wrapper's {want}")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, i32, i32, ptr, i32, i32, ptr, ptr]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def _sq_norms(a: torch.Tensor) -> torch.Tensor:
     """|a_i|² in float64, summed over the columns in order: the same
     value for a point whichever rows a tensor holds."""
@@ -414,32 +376,53 @@ def _pack_pass(rows: torch.Tensor, points: torch.Tensor,
 
 
 def _pairs_kernel(rows: torch.Tensor, points: torch.Tensor,
-                  flags: torch.Tensor, eps: float,
+                  flags: torch.Tensor, eps: float, block: int,
                   reach: bool) -> torch.Tensor:
     """One launch of csrc/points_pairs.cu: int64 neighbour counts of
     `rows` among the `flags` points (count mode), or whether each row
-    has a `flags` point within eps (reach mode, bool)."""
-    global points_launches
+    has a `flags` point within eps (reach mode, bool). `block` is the
+    plain version's and goes unused: the kernel's blocks are its
+    own."""
     m = rows.shape[0]
     if m == 0 or points.shape[0] == 0:
         return torch.zeros(m, dtype=torch.bool if reach else torch.int64,
                            device=rows.device)
-    fn = _points_library()
+    fn = _build.bind("points_pairs", "points_pairs", _PTS_ARGTYPES,
+                     _PTS_CONSTANTS)
     row_pack, col_pack = _pack_pass(rows, points, flags, eps,
                                     _PTS_BLOCK_ROWS[reach], _PTS_TILE)
     out = torch.empty(m, dtype=torch.uint8 if reach else torch.int64,
                       device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(row_pack.data_ptr(), row_pack.shape[0], m,
-                 col_pack.data_ptr(), col_pack.shape[0], int(reach),
-                 out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"points_pairs kernel launch failed: CUDA "
-                           f"error {err}")
-    with _launch_lock:
-        points_launches += 1
+    _build.launch("points_pairs", fn, rows.device, row_pack.data_ptr(),
+                  row_pack.shape[0], m, col_pack.data_ptr(),
+                  col_pack.shape[0], int(reach), out.data_ptr())
     return out.view(torch.bool) if reach else out
+
+
+def _pairs_tiles(rows: torch.Tensor, points: torch.Tensor,
+                 flags: torch.Tensor, eps: float, block: int,
+                 reach: bool) -> torch.Tensor:
+    """The plain version of either pass, on any device: int64 counts of
+    the `flags` points within eps of each row, or (`reach`) bool
+    whether there is one, over [block, N] tiles (the rows padded to a
+    multiple of block)."""
+    m = rows.shape[0]
+    rows = _pad_rows(rows, block)
+    x2 = (points * points).sum(-1)
+    eps2 = eps * eps
+    out = torch.empty(rows.shape[0],
+                      dtype=torch.bool if reach else torch.int64,
+                      device=rows.device)
+    for i in range(0, rows.shape[0], block):
+        w = _within(rows[i:i + block], points, x2, eps2)
+        w &= flags[None, :]
+        out[i:i + block] = w.any(-1) if reach else w.sum(-1)
+    return out[:m]
+
+
+#: a pass's function by `_route`: both take (rows, points, flags, eps,
+#: block, reach)
+_PASSES = {"kernel": _pairs_kernel, "torch": _pairs_tiles}
 
 
 def points_neighbour_counts(rows: torch.Tensor, points: torch.Tensor,
@@ -459,31 +442,10 @@ def points_neighbour_counts(rows: torch.Tensor, points: torch.Tensor,
     dbscan_points_noise). The span `dbscan.count_pass` carries the
     `route`, "kernel" or "torch"."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    m = rows.shape[0]
     route = _route(rows, points, valid)
-    with _trace.span("dbscan.count_pass", rows=m, points=points.shape[0],
-                     block=block, route=route):
-        if route == "kernel":
-            return _pairs_kernel(rows, points, valid, eps, reach=False)
-        return _counts_tiles(rows, points, valid, eps, block)
-
-
-def _counts_tiles(rows: torch.Tensor, points: torch.Tensor,
-                  valid: torch.Tensor, eps: float,
-                  block: int) -> torch.Tensor:
-    """The plain version of the count pass, on any device: [block, N]
-    tiles."""
-    m = rows.shape[0]
-    rows = _pad_rows(rows, block)
-    x2 = (points * points).sum(-1)
-    eps2 = eps * eps
-    counts = torch.empty(rows.shape[0], dtype=torch.int64,
-                         device=rows.device)
-    for i in range(0, rows.shape[0], block):
-        w = _within(rows[i:i + block], points, x2, eps2)
-        w &= valid[None, :]
-        counts[i:i + block] = w.sum(-1)
-    return counts[:m]
+    with _trace.span("dbscan.count_pass", rows=rows.shape[0],
+                     points=points.shape[0], block=block, route=route):
+        return _PASSES[route](rows, points, valid, eps, block, reach=False)
 
 
 def points_reachable(rows: torch.Tensor, points: torch.Tensor,
@@ -506,32 +468,9 @@ def points_reachable(rows: torch.Tensor, points: torch.Tensor,
         open_rows = torch.nonzero(~row_core)[:, 0]
         sp.attrs["rows"] = len(open_rows)
         reachable = row_core.clone()
-        if route == "kernel":
-            got = _pairs_kernel(rows[open_rows], points, core, eps,
-                                reach=True)
-        else:
-            got = _reachable_tiles(rows[open_rows], points, core, eps,
-                                   block)
-        reachable[open_rows] = got
+        reachable[open_rows] = _PASSES[route](rows[open_rows], points, core,
+                                              eps, block, reach=True)
     return reachable
-
-
-def _reachable_tiles(rows: torch.Tensor, points: torch.Tensor,
-                     core: torch.Tensor, eps: float,
-                     block: int) -> torch.Tensor:
-    """The plain version of the reach pass, on any device: [block, N]
-    tiles."""
-    m = rows.shape[0]
-    rows = _pad_rows(rows, block)
-    x2 = (points * points).sum(-1)
-    eps2 = eps * eps
-    reachable = torch.empty(rows.shape[0], dtype=torch.bool,
-                            device=rows.device)
-    for i in range(0, rows.shape[0], block):
-        w = _within(rows[i:i + block], points, x2, eps2)
-        w &= core[None, :]
-        reachable[i:i + block] = w.any(-1)
-    return reachable[:m]
 
 
 def dbscan_points_noise(points: torch.Tensor, valid: torch.Tensor,

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..analytics.streaming import StreamState, _update as _stream_tick
+from . import _build
 from .ewma import DEFAULT_ALPHA
 from .sketch import (
     CmsState,
@@ -121,30 +122,16 @@ MAX_TILES = 16
 #: threads per block: each tile takes ceil(U / THREADS) blocks
 THREADS = 256
 
-_launch_lock = threading.Lock()
-#: B1 kernel launches since import; only a launch counts (a call on
-#: CPU tensors runs the plain version)
-launches = 0
+_tiles_lock = threading.Lock()
 #: tiles scored by the kernel since import (a launch scores up to
-#: MAX_TILES)
+#: MAX_TILES; `_build.launches()["stream_scan"]` counts the launches)
 tiles = 0
 
-
-def _kernel_fn():
-    from ._build import library
-    lib = library("stream_scan")
-    fn = lib.stream_scan_grouped_launch
-    if fn.argtypes is None:
-        if (lib.stream_scan_max_tiles(), lib.stream_scan_threads()) != \
-                (MAX_TILES, THREADS):
-            raise RuntimeError("stream_scan: the library's tile limit or "
-                               "block size differs from the wrapper's")
-        i32 = ctypes.POINTER(ctypes.c_int32)
-        fn.argtypes = ([ctypes.POINTER(ctypes.c_int64)] + [i32] * 4
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_I32 = ctypes.POINTER(ctypes.c_int32)
+_ARGTYPES = ([ctypes.POINTER(ctypes.c_int64)] + [_I32] * 4
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_float])
+_CONSTANTS = {("stream_scan_max_tiles",): MAX_TILES,
+              ("stream_scan_threads",): THREADS}
 
 
 #: dtypes of a tile's ewma, count, mean, m2, slots, x, active
@@ -230,8 +217,7 @@ def stream_scan_grouped(group: Sequence[ScanTile],
     per MAX_TILES tiles (or raise); CPU tensors run `_stream_half_plain`
     tile by tile. The flags of every tile are views of one fresh
     allocation. Tiles whose state arrays overlap are refused. The
-    module's `launches` counts kernel launches and `tiles` the tiles
-    they scored."""
+    module's `tiles` counts the tiles the kernel scored."""
     if not group:
         return []
     dev = group[0][1].device
@@ -253,27 +239,20 @@ def stream_scan_grouped(group: Sequence[ScanTile],
         anoms.append(torch.as_strided(flat, (t, u), (u, 1), offset))
         tile_ptrs.append(base + offset)
         offset += t * u
-    fn = _kernel_fn()
-    n_launches = n_tiles = 0
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for idx, first in _group_plan([d[:2] for d in dims]):
-            n = len(idx)
-            err = fn((ctypes.c_int64 * (8 * n))(
-                         *(p for k in idx for p in ptrs[k])),
-                     *((ctypes.c_int32 * n)(*(dims[k][j] for k in idx))
-                       for j in range(3)),
-                     (ctypes.c_int32 * (n + 1))(*first), n,
-                     float(alpha), 1.0 - float(alpha), stream)
-            if err != 0:
-                raise RuntimeError(f"stream_scan kernel launch failed: "
-                                   f"CUDA error {err}")
-            n_launches += 1
-            n_tiles += n
-    global launches, tiles
-    with _launch_lock:
-        launches += n_launches
-        tiles += n_tiles
+    fn = _build.bind("stream_scan", "stream_scan_grouped_launch",
+                     _ARGTYPES, _CONSTANTS)
+    global tiles
+    for idx, first in _group_plan([d[:2] for d in dims]):
+        n = len(idx)
+        _build.launch("stream_scan", fn, dev,
+                      (ctypes.c_int64 * (8 * n))(
+                          *(p for k in idx for p in ptrs[k])),
+                      *((ctypes.c_int32 * n)(*(dims[k][j] for k in idx))
+                        for j in range(3)),
+                      (ctypes.c_int32 * (n + 1))(*first), n,
+                      float(alpha), 1.0 - float(alpha))
+        with _tiles_lock:
+            tiles += n
     return anoms
 
 

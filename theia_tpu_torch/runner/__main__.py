@@ -358,16 +358,11 @@ def main(argv=None) -> None:
     # stderr tail the controller keeps on the record (runner_log_tail,
     # the support bundle's runner-log source).
     from ..obs import trace
-    from ..ops import dbscan, fused_detector
-    kernels = {"B1": (fused_detector, "launches"),
-               "B2": (dbscan, "launches"),
-               "points": (dbscan, "points_launches")}
-
-    def counts():
-        return {name: getattr(mod, attr)
-                for name, (mod, attr) in kernels.items()}
-
-    before = counts()
+    from ..ops import _build
+    # the line's name of each kernel library
+    labels = {"B1": "stream_scan", "B2": "dbscan_noise",
+              "points": "points_pairs"}
+    before = _build.launches()
     with trace.span("runner.job", job=args.job, id=args.id or ""):
         job_id = runners[args.job](args)
     for op, rec in trace.slowest().items():
@@ -375,9 +370,13 @@ def main(argv=None) -> None:
               file=sys.stderr)
     # the child's counterpart of the trace summary for the card: its
     # device, and each hand-written kernel's launches in this job
-    moved = [f"{name} launches {n - before[name]}"
-             for name, n in counts().items() if n != before[name]]
-    print(", ".join([f"device {args.device}"] + moved), file=sys.stderr)
+    after = _build.launches()
+    moved = {label: after.get(lib, 0) - before.get(lib, 0)
+             for label, lib in labels.items()}
+    print(", ".join([f"device {args.device}"]
+                    + [f"{label} launches {n}"
+                       for label, n in moved.items() if n]),
+          file=sys.stderr)
     print(json.dumps({"id": job_id, "state": "COMPLETED"}))
 
 
