@@ -20,9 +20,10 @@ on the card:
   * the jobs slice through the same manager's API: NPR (the device
     DISTINCT over 1,048,576 rows), pattern mining, spatial DBSCAN over
     all 1,048,576 flows, and drop detection over a month of dropped
-    flows. No Pallas kernel stands behind them: their device work is
-    torch ops (sorts, scatter-adds, a blocked float32 matmul, masked
-    means);
+    flows. No Pallas kernel stands behind them: SAD's passes are the
+    hand-written points kernel (csrc/points_pairs.cu) and its
+    embedding the hand-written flow_embed (csrc/flow_embed.cu); the
+    rest is torch ops (sorts, scatter-adds, masked means);
   * the control plane: the same jobs through a manager started with
     `--dispatch subprocess`, each in a `python -m
     theia_tpu_torch.runner` child with its own CUDA context on the
@@ -45,12 +46,14 @@ exits non-zero. The last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Phases: device; build (both libraries in parallel); B1 against its
+Phases: device; build (the kernel libraries in parallel); B1 against its
 plain version; the ingest path (one grouped B1 launch per fused step);
 ingest card vs CPU parity; B1's grouped launch against its plain
 version and against one-tile launches; B2 against its plain version,
 through the wrapper and each of its two routes; B2 on special values;
-the TAD path; TAD card vs CPU parity; then the manager slice: the
+the TAD path; TAD card vs CPU parity; the points kernel and the flow
+embedding against their plain versions at the SAD cell's size and the
+jobs' store (points_kernel, flow_embed); then the manager slice: the
 port's manager started through its entry point's main() (POST /ingest
 from four producer streams through admission, dedup, the WAL, the
 parts store and the fused engine), its one-stream parity against the
@@ -1151,7 +1154,8 @@ def build_kernels() -> dict:
         seconds[name] = time.perf_counter() - t0
 
     threads = [threading.Thread(target=build, args=(n,))
-               for n in ("stream_scan", "dbscan_noise", "points_pairs")]
+               for n in ("stream_scan", "dbscan_noise", "points_pairs",
+                         "flow_embed")]
     for th in threads:
         th.start()
     for th in threads:
@@ -2336,18 +2340,107 @@ def compare_points(emb, device) -> dict:
     return out
 
 
-def phase_points_kernel(flows, device) -> dict:
-    """compare_points over the embeddings of the SAD cell's store shape
-    (POINTS_CELL, 262,144 flows) and of `flows` (the jobs' store)."""
-    import torch
-    from theia_tpu_torch.analytics import flow_embeddings
+def sad_cell_flows():
+    """Synth flows of the SAD cell's store shape (POINTS_CELL, 262,144
+    flows)."""
     from theia_tpu_torch.data.synth import SynthConfig, generate_flows
     n_series, points = POINTS_CELL
-    cell = generate_flows(SynthConfig(n_series=n_series,
+    return generate_flows(SynthConfig(n_series=n_series,
                                       points_per_series=points, seed=14))
+
+
+def phase_points_kernel(cell, flows, device) -> dict:
+    """compare_points over the embeddings of `cell` (sad_cell_flows)
+    and of `flows` (the jobs' store)."""
+    import torch
+    from theia_tpu_torch.analytics import flow_embeddings
     return {"shapes": [
         compare_points(torch.from_numpy(flow_embeddings(f)), device)
         for f in (cell, flows)]}
+
+
+#: the flow embedding's bytes a flow: the four columns read (three
+#: int32, one int64) and seven float32 written; and the card's HBM
+#: bandwidth (H100 SXM, bytes/s)
+EMBED_FLOW_BYTES = 3 * 4 + 8 + 7 * 4
+HBM_BYTES_S = 3.35e12
+#: numpy's embedding timed this many times (median)
+EMBED_NUMPY_TIMED = 5
+
+
+def compare_embed(flows, device) -> dict:
+    """The SAD job's flow embedding of `flows` on the card: the kernel
+    (csrc/flow_embed.cu through ops/embed.py::flow_embedding) against
+    the plain version on the CPU and numpy's flow_embeddings, every
+    column compared as uint32 bits (the rows that differ listed with
+    their octet counts, at most ten), and against the plain version on
+    the card; its launches a call; its time (CUDA events around a
+    call, and in a CUDA graph, without the host's launch path) beside
+    the bytes bound, the plain version's time on the card and numpy's
+    on the host."""
+    import numpy as np
+    import torch
+    from theia_tpu_torch.analytics.spatial import (SPATIAL_COLUMNS,
+                                                   flow_embeddings)
+    from theia_tpu_torch.ops import embed
+    n = len(flows)
+    host = [torch.from_numpy(np.ascontiguousarray(flows[c]))
+            for c in SPATIAL_COLUMNS]
+    cols = [c.to(device) for c in host]
+
+    def call():
+        return embed.flow_embedding(*cols)
+
+    launches0 = launch_count("flow_embed")
+    got = call()
+    torch.cuda.synchronize()
+    out: dict = {"N": n,
+                 "launches_one_call": launch_count("flow_embed") - launches0}
+    bits = got.cpu().numpy().view(np.uint32)
+    octets = np.asarray(flows["octetDeltaCount"])
+    numpy_s = []
+    for _ in range(EMBED_NUMPY_TIMED):
+        t0 = time.perf_counter()
+        want = flow_embeddings(flows)
+        numpy_s.append(time.perf_counter() - t0)
+    for name, other in (
+            ("numpy", want),
+            ("plain", embed._embed_torch(*host).numpy()),
+            ("plain_card", embed._embed_torch(*cols).cpu().numpy())):
+        rows = np.nonzero((bits != other.view(np.uint32)).any(1))[0]
+        out[f"rows_differ_{name}"] = len(rows)
+        out[f"differ_{name}"] = [
+            {"row": int(i), "octets": int(octets[i]),
+             "got": got[i].tolist(), "want": other[i].tolist()}
+            for i in rows[:10]]
+    out.update(
+        ms=cuda_median_ms(call),
+        kernel_ms=graph_ms(call),
+        plain_ms=cuda_median_ms(lambda: embed._embed_torch(*cols)),
+        numpy_ms=statistics.median(numpy_s) * 1e3,
+        bytes=n * EMBED_FLOW_BYTES,
+        bound_ms=n * EMBED_FLOW_BYTES / HBM_BYTES_S * 1e3, bound_by="bytes")
+    return out
+
+
+def phase_flow_embed(cell, flows, device) -> dict:
+    """compare_embed over `cell` (sad_cell_flows) and `flows` (the
+    jobs' store)."""
+    return {"shapes": [compare_embed(f, device) for f in (cell, flows)]}
+
+
+def check_flow_embed(got: dict) -> None:
+    """The kernel bit-equal to the plain version and to numpy; one
+    launch a call; a kernel time measured (above 0) and no faster than
+    its bytes bound, else the graph timed no kernel or the bound counts
+    too many bytes."""
+    for row in got["shapes"]:
+        if row["rows_differ_numpy"] or row["rows_differ_plain"] \
+                or row["launches_one_call"] != 1:
+            raise AssertionError(f"flow_embed against plain: {row}")
+        if not row["kernel_ms"] >= row["bound_ms"] > 0:
+            raise AssertionError(f"flow_embed kernel time below its bound "
+                                 f"or unmeasured: {row}")
 
 
 def check_points_kernel(got: dict) -> None:
@@ -2647,6 +2740,7 @@ def drive_jobs(port: int, device, kept: dict) -> tuple:
                 name = f"{prefix}-{uuid.uuid4()}"
                 torch.cuda.reset_peak_memory_stats()
                 launches0 = launch_count("points_pairs")
+                embed0 = launch_count("flow_embed")
                 t0 = time.perf_counter()
                 with DeviceCall(mod, attr, profile=mode == "profiled",
                                 keep=mode == "timed") as call:
@@ -2662,6 +2756,8 @@ def drive_jobs(port: int, device, kept: dict) -> tuple:
                         torch.cuda.max_memory_allocated(),
                     "points_launches":
                         launch_count("points_pairs") - launches0,
+                    "embed_launches":
+                        launch_count("flow_embed") - embed0,
                     "job_id": st["sparkApplication"]})
             name, doc, call, job = runs["timed"]
             kept[kind] = doc
@@ -2708,10 +2804,13 @@ def drive_jobs(port: int, device, kept: dict) -> tuple:
                                and a.get("job") == name for a in alerts))
                 if not job["spatial_alerts"]:
                     raise AssertionError("no spatial alert reached /alerts")
-                if device.type == "cuda" and job["points_launches"] != 2:
-                    raise AssertionError(f"the SAD job's passes: "
+                if device.type == "cuda" and (job["points_launches"] != 2
+                                              or job["embed_launches"] != 1):
+                    raise AssertionError(f"the SAD job's kernels: "
                                          f"{job['points_launches']} points "
-                                         "kernel launches, not 2")
+                                         "kernel launches (not 2), "
+                                         f"{job['embed_launches']} "
+                                         "flow_embed (not 1)")
             if kind == "dd":
                 found = {(r["endpoint"], r["direction"],
                           int(r["anomalyDropDate"])) for r in doc["stats"]}
@@ -3334,6 +3433,10 @@ def check_manager_subprocess(got: dict, device) -> None:
             got["jobs"]["sad"]["launches"].get("points", 0) != 2:
         raise AssertionError(f"the SAD child was not seen on the card: "
                              f"{card}")
+    if device.type == "cuda" and \
+            got["jobs"]["sad"]["launches"].get("embed", 0) != 1:
+        raise AssertionError("the SAD child's flow_embed launches: "
+                             f"{got['jobs']['sad']['launches']}, not 1")
     kill = got["sigkill"]
     if not (kill["state"] == "COMPLETED" and kill["attempts"] == 2
             and kill["completed_stages_at_kill"] >= 2
@@ -3372,13 +3475,13 @@ MD_FLAG_BAND = 1e-9
 
 
 def md_run(run, devices) -> tuple:
-    """`run()` with B2's and the points kernel's counts set to 0 just
-    before it and read just after, and each CUDA device's peak
-    allocated bytes reset before it and read after (the shards of a
+    """`run()` with B2's, the points kernel's and flow_embed's counts
+    set to 0 just before it and read just after, and each CUDA device's
+    peak allocated bytes reset before it and read after (the shards of a
     logical mesh share one card, so its peak is theirs together): (its
     result, {seconds, span_ms — CUDA events around the call on the
     first card, so the span ends with the call's last kernel —,
-    b2_launches, points_launches, peak_allocated})."""
+    b2_launches, points_launches, embed_launches, peak_allocated})."""
     import torch
     cards = sorted({torch.device(d) for d in devices
                     if torch.device(d).type == "cuda"}, key=str)
@@ -3392,10 +3495,12 @@ def md_run(run, devices) -> tuple:
             events[0].record()
     launches = launch_count("dbscan_noise")
     points_launches = launch_count("points_pairs")
+    embed_launches = launch_count("flow_embed")
     t0 = time.perf_counter()
     result = run()
     launches = launch_count("dbscan_noise") - launches
     points_launches = launch_count("points_pairs") - points_launches
+    embed_launches = launch_count("flow_embed") - embed_launches
     if events is not None:
         with torch.cuda.device(cards[0]):
             events[1].record()
@@ -3407,6 +3512,7 @@ def md_run(run, devices) -> tuple:
         else events[0].elapsed_time(events[1]),
         "b2_launches": launches,
         "points_launches": points_launches,
+        "embed_launches": embed_launches,
         "peak_allocated": {str(d): torch.cuda.max_memory_allocated(d)
                            for d in cards}}
 
@@ -3458,8 +3564,10 @@ def phase_multi_device(flows, sad_points, sad_noise, device,
     DBSCAN over the TAD flows with rows equal to mesh=None (B2 once a
     shard for DBSCAN); the time-sharded EWMA over a long-series batch
     within MD_TIME_RTOL, and score_series' automatic time sharding;
-    run_npr and pattern mining over the same flows, sharded against
-    one device, rows equal; the sharded SAD passes over the points
+    run_npr, pattern mining and run_spatial over the same flows,
+    sharded against one device, rows equal (either SAD job embeds with
+    one flow_embed launch on a card, the sharded one on the mesh's
+    first device); the sharded SAD passes over the points
     manager_jobs' SAD job scored, against that job's flags (on a card
     both run the points kernel, so they are equal bit for bit; on the
     CPU a flag may differ only in the float32 eps band, recounted in
@@ -3471,6 +3579,7 @@ def phase_multi_device(flows, sad_points, sad_noise, device,
     import torch
     from theia_tpu_torch import parallel
     from theia_tpu_torch.analytics import run_npr, run_pattern_mining
+    from theia_tpu_torch.analytics.spatial import run_spatial
     from theia_tpu_torch.analytics.tad import LONG_SERIES_T, score_series
     from theia_tpu_torch.ops.ewma import ewma_scores
     from theia_tpu_torch.store import FlowDatabase
@@ -3531,7 +3640,9 @@ def phase_multi_device(flows, sad_points, sad_noise, device,
         "std_max_rel": max_rel(s_sh, s_lo),
         "flags_differ": int((a_sh != a_lo).sum())}
 
-    # NPR and pattern mining over the same flows
+    # NPR, pattern mining and the SAD job over the same flows (the
+    # sharded SAD embeds on the mesh's first device: one flow_embed
+    # launch, as on one device)
     epoch = datetime.datetime.fromtimestamp(0, datetime.timezone.utc)
     for kind, table, run in (
             ("npr", "recommendations",
@@ -3540,7 +3651,10 @@ def phase_multi_device(flows, sad_points, sad_noise, device,
             ("fpm", "flowpatterns",
              lambda jid, m: run_pattern_mining(
                  db, min_support=fpm_support, mining_id=jid, now=0,
-                 mesh=m, device=device))):
+                 mesh=m, device=device)),
+            ("sad_job", "spatialnoise",
+             lambda jid, m: run_spatial(db, spatial_id=jid, now=0, mesh=m,
+                                        device=device))):
         runs = {}
         for side, m in (("sharded", mesh), ("one_device", None)):
             jid = f"md-{side}-{kind}"
@@ -3599,10 +3713,15 @@ def check_multi_device(got: dict, device) -> None:
     if auto["ewma_max_rel"] > MD_TIME_RTOL or auto["std_max_rel"] > \
             MD_TIME_RTOL or auto["flags_differ"]:
         raise AssertionError(f"automatic time sharding: {auto}")
-    for kind in ("npr", "fpm"):
+    for kind in ("npr", "fpm", "sad_job"):
         if not (got[kind]["rows_equal"] and got[kind]["rows"]):
             raise AssertionError(f"{kind} sharded vs one device: "
                                  f"{got[kind]}")
+    job = got["sad_job"]
+    if device.type == "cuda" and any(job[side]["embed_launches"] != 1
+                                     for side in ("sharded", "one_device")):
+        raise AssertionError(f"flow_embed launches, sharded and "
+                             f"one-device SAD job 1 each: {job}")
     sad = got["sad"]
     if sad["differ_outside_band"] or not sad["noise"] or (
             device.type == "cuda" and sad["differ"]):
@@ -4003,10 +4122,16 @@ def main() -> int:
         "bound_full_ms": at_tad["bound_full_ms"],
     })
 
-    # The points kernel at the SAD cell's size and the SAD job's.
-    points = phase_points_kernel(flows, device)
+    # The points kernel and the flow embedding at the SAD cell's size
+    # and the SAD job's.
+    cell = sad_cell_flows()
+    points = phase_points_kernel(cell, flows, device)
     emit("points_kernel", kernel="points_pairs", **points)
     check_points_kernel(points)
+    embeds = phase_flow_embed(cell, flows, device)
+    del cell
+    emit("flow_embed", kernel="flow_embed", **embeds)
+    check_flow_embed(embeds)
     at_cell = points["shapes"][0]
     kernels.append({
         "name": "points_pairs", "route": "cuda",
@@ -4020,6 +4145,24 @@ def main() -> int:
         "ms": at_cell["count_ms"] + at_cell["reach_ms"],
         "plain_ms": at_cell["plain_count_ms"] + at_cell["plain_reach_ms"],
         "bound_ms": at_cell["bound_ms"], "bound_by": at_cell["bound_by"],
+        "library_ms": None,
+    })
+    embed_cell = embeds["shapes"][0]
+    kernels.append({
+        "name": "E1 flow_embed", "route": "cuda",
+        "source": "theia_tpu_torch/csrc/flow_embed.cu",
+        "replaces": None,
+        "tpu": "none: the reference embeds in numpy on the host "
+               "(theia_tpu/analytics/spatial.py::flow_embeddings)",
+        "matches_plain": all(not r["rows_differ_plain"]
+                             and not r["rows_differ_numpy"]
+                             for r in embeds["shapes"]),
+        "shape": {"N": embed_cell["N"], "F": 7},
+        "ms": embed_cell["ms"], "kernel_ms": embed_cell["kernel_ms"],
+        "plain_ms": embed_cell["plain_ms"],
+        "numpy_ms": embed_cell["numpy_ms"],
+        "bound_ms": embed_cell["bound_ms"],
+        "bound_by": embed_cell["bound_by"],
         "library_ms": None,
     })
 
@@ -4115,6 +4258,17 @@ def main() -> int:
             # a count pass a shard, a reach pass a shard with a non-core
             # row
             "multi_device": multi["sad"]["sharded"]["points_launches"]})
+    kernels[3].update(
+        launches=jobs["sad"]["embed_launches"],
+        launches_by_path={
+            "manager_jobs": jobs["sad"]["embed_launches"],
+            # counted in the SAD job's runner child
+            "manager_subprocess": sub["jobs"]["sad"]["launches"].get(
+                "embed", 0),
+            # run_spatial over the logical shards, on the first one
+            "multi_device": multi["sad_job"]["sharded"]["embed_launches"],
+            "one_device": multi["sad_job"]["one_device"][
+                "embed_launches"]})
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -18,7 +18,7 @@ from types import SimpleNamespace
 
 import pytest
 
-from theia_tpu_torch.ops import _build, dbscan, fused_detector
+from theia_tpu_torch.ops import _build, dbscan, embed, fused_detector
 
 #: the fake current stream's handle
 STREAM = 0x5EED
@@ -79,6 +79,7 @@ WRAPPERS = {
                     dbscan._CONSTANTS),
     "P1": ("points_pairs", "points_pairs", dbscan._PTS_ARGTYPES,
            dbscan._PTS_CONSTANTS),
+    "E1": ("flow_embed", "flow_embed", embed._ARGTYPES, embed._CONSTANTS),
 }
 
 

@@ -201,8 +201,9 @@ DERIVED = {
         "main": "resolve_device(--device) in place of the JAX_PLATFORMS "
                 "update, exiting non-zero without a card; after the "
                 "timing lines one stderr line with the device and the "
-                "B1/B2/points-kernel launches that moved (ops/_build.py's "
-                "counts), the trace summary's counterpart for the card "
+                "B1/B2/points/embed kernel launches that moved "
+                "(ops/_build.py's counts), the trace summary's "
+                "counterpart for the card "
                 "(the parent reads a child's kernels only from its "
                 "stderr tail)",
     },
@@ -230,11 +231,23 @@ DERIVED = {
     "analytics/spatial.py": {
         "spatial_outliers": "the port's dbscan_points_noise on "
                             "device=, or its sharded passes over a "
-                            "mesh of torch devices (one controller)",
+                            "mesh of torch devices (one controller); "
+                            "embeds with device_embeddings on device= "
+                            "or the mesh's first device, and takes "
+                            "embeddings given as a tensor there as "
+                            "they lie, with no copy",
         "run_spatial": "takes device=, resolved when no mesh runs; "
                        "mesh 'auto' is utils.device.auto_mesh; reads "
                        "only SPATIAL_COLUMNS and spans the read "
-                       "(sad.read)",
+                       "(sad.read); embeds with device_embeddings on "
+                       "device= or the mesh's first device, never "
+                       "with the numpy flow_embeddings",
+        "device_embeddings": "flow_embeddings on the job's device: "
+                             "the four columns copied as stored, then "
+                             "ops/embed.py's kernel (a card) or plain "
+                             "version (the CPU), in a sad.embed span",
+        "embedding_device": "where a job embeds: the mesh's first "
+                            "device, else device=",
         "SPATIAL_COLUMNS": "the four columns run_spatial reads from "
                            "the store; the reference reads every "
                            "column",

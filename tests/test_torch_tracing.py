@@ -559,14 +559,25 @@ def test_sad_job_spans_its_passes_copies_and_alert_push():
         & valid
     assert by_op["dbscan.count_pass"][0]["rows"] == len(pts)
     assert by_op["dbscan.reach_pass"][0]["rows"] == int((~core).sum())
-    for op in ("dbscan.count_pass", "dbscan.reach_pass", "sad.to_device",
-               "sad.fetch", "sad.decode"):
+    for op in ("dbscan.count_pass", "dbscan.reach_pass", "sad.fetch",
+               "sad.decode"):
         (sp,) = by_op[op]
         assert sp["traceId"] == run["traceId"]
         assert sp["parentSpanId"] == run["spanId"]
         # inside the score stage
         assert lo <= sp["startTime"]
         assert sp["startTime"] + sp["durationMs"] / 1e3 <= hi
+    # the columns' copy lies in the embed stage, inside sad.embed
+    embed = next(s for s in by_op["job.stage"] if s["stage"] == "embed")
+    (emb,), (copy,) = by_op["sad.embed"], by_op["sad.to_device"]
+    assert (emb["rows"], emb["route"], copy["rows"]) == (n, "torch", n)
+    assert emb["parentSpanId"] == run["spanId"]
+    assert copy["parentSpanId"] == emb["spanId"]
+    assert copy["traceId"] == emb["traceId"] == run["traceId"]
+    for sp in (emb, copy):
+        assert embed["startTime"] <= sp["startTime"]
+        assert sp["startTime"] + sp["durationMs"] / 1e3 <= \
+            embed["startTime"] + embed["durationMs"] / 1e3 + 1e-3
     # the push publishes at most 100 of the job's noise flows
     assert min(by_op["sad.decode"][0]["flows"], 100) == len(alerts)
     (push,) = by_op["job.alert_push"]
@@ -581,10 +592,10 @@ def test_raising_job_closes_its_stage_span_inside_job_run(monkeypatch):
     from theia_tpu_torch.analytics import spatial
     from theia_tpu_torch.manager.jobs import KIND_SPATIAL
 
-    def broken(flows):
+    def broken(flows, device):
         raise RuntimeError("embedding failed")
 
-    monkeypatch.setattr(spatial, "flow_embeddings", broken)
+    monkeypatch.setattr(spatial, "device_embeddings", broken)
     (bad, good), spans = _run_jobs([(KIND_SPATIAL, {}),
                                     (KIND_SPATIAL, {"eps": 2.0})])
     assert bad.state == "FAILED" and "embedding failed" in bad.error_msg

@@ -14,15 +14,20 @@ scans, misconfigurations. The reference has DBSCAN only over per-
 connection 1-D throughput series; this is the cross-flow spatial
 variant its benchmark config names.
 
-Ports theia_tpu/analytics/spatial.py: the embedding is the reference's
-numpy code, verbatim; the pairwise pass runs on `device=` (default
-"cuda") through the port's `ops.dbscan.dbscan_points_noise`, or over
-a mesh (parallel.make_sharded_points_dbscan). Only `spatial_outliers`
-and `run_spatial` differ: they take `device=` for the one-device pass,
-and `spatial_outliers` times its copy to the device, the result's fetch
-and the noise flows' decode as spans (`sad.to_device`, `sad.fetch`,
-`sad.decode`, obs/trace.py). `run_spatial` reads only SPATIAL_COLUMNS
-from the store, in a `sad.read` span.
+Ports theia_tpu/analytics/spatial.py: `flow_embeddings` is the
+reference's numpy code, verbatim, and stays as the plain reference of
+the embedding; the job embeds on its device instead
+(`device_embeddings`: the four columns copied as they are, then
+ops/embed.py's kernel on a card or its plain version on the CPU), on
+the mesh's first device when a mesh runs. The pairwise pass runs on
+`device=` (default "cuda") through the port's
+`ops.dbscan.dbscan_points_noise`, or over a mesh
+(parallel.make_sharded_points_dbscan). Only `spatial_outliers` and
+`run_spatial` differ: they take `device=` for the one-device pass, and
+time the columns' copy to the device, the result's fetch and the noise
+flows' decode as spans (`sad.to_device`, `sad.fetch`, `sad.decode`,
+obs/trace.py). `run_spatial` reads only SPATIAL_COLUMNS from the
+store, in a `sad.read` span.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from ..obs import trace as _trace
 from ..ops.dbscan import dbscan_points_noise
+from ..ops import embed as _embed
 from ..schema import ColumnarBatch
 from ..utils.device import auto_mesh, resolve_device
 
@@ -79,50 +85,64 @@ def flow_embeddings(flows: ColumnarBatch) -> np.ndarray:
     return np.stack(axes, axis=1).astype(np.float32)
 
 
+def device_embeddings(flows: ColumnarBatch, device) -> torch.Tensor:
+    """`flow_embeddings` of `flows` as a [n, 7] float32 tensor on
+    `device`, computed there from SPATIAL_COLUMNS: the columns copied
+    as the store holds them (`sad.to_device`), then ops/embed.py's
+    flow_embedding, all in a `sad.embed` span (`rows`, `route`)."""
+    dev = resolve_device(device)
+    n = len(flows)
+    with _trace.span("sad.embed", rows=n, route=_embed.route(dev)):
+        with _trace.span("sad.to_device", rows=n):
+            cols = [torch.from_numpy(np.ascontiguousarray(flows[c])).to(dev)
+                    for c in SPATIAL_COLUMNS]
+        return _embed.flow_embedding(*cols)
+
+
+def embedding_device(mesh, device) -> torch.device:
+    """Where a job embeds its flows: the mesh's first device when a
+    mesh runs (make_sharded_points_dbscan shards from there), else
+    `device`."""
+    if mesh is None:
+        return resolve_device(device)
+    return torch.device(mesh.devices.flat[0])
+
+
 def spatial_outliers(flows: ColumnarBatch,
                      eps: float = DEFAULT_EPS,
                      min_samples: int = DEFAULT_MIN_SAMPLES,
                      block: int = 1024,
                      mesh=None,
-                     embeddings: Optional[np.ndarray] = None,
+                     embeddings: Optional[torch.Tensor] = None,
                      device="cuda"
                      ) -> List[Dict[str, object]]:
     """Flows outside every recurring traffic pattern. Returns one dict
     per noise flow: decoded source/destination/port/bytes. The
     pairwise pass runs on `device`; with `mesh`, it shards rows over
     the mesh with all_gathered points/core-flags
-    (parallel.make_sharded_points_dbscan). `embeddings` lets a caller
-    that already embedded the flows (run_spatial's staged progress)
-    skip recomputation."""
+    (parallel.make_sharded_points_dbscan). The flows are embedded on
+    `device`, or on the mesh's first device (device_embeddings);
+    `embeddings` lets a caller that already did that (run_spatial's
+    staged progress) skip recomputation."""
     n = len(flows)
     if n == 0:
         return []
+    dev = embedding_device(mesh, device)
     emb = embeddings if embeddings is not None \
-        else flow_embeddings(flows)
+        else device_embeddings(flows, dev)
     if mesh is not None:
-        from ..parallel import make_sharded_points_dbscan, \
-            pad_to_multiple
-        from ..parallel.mesh import ROWS_AXIS, make_rows_mesh
-        if ROWS_AXIS not in mesh.axis_names:
-            # job_mesh() hands out the (series x time) job mesh; the
-            # points kernel shards tile ROWS — rebuild over the same
-            # devices with the rows axis.
-            mesh = make_rows_mesh(devices=mesh.devices.flatten())
-        n_dev = mesh.devices.size
-        padded, _ = pad_to_multiple(emb, n_dev, axis=0)
-        valid = np.zeros(len(padded), bool)
-        valid[:n] = True
+        from ..parallel import make_sharded_points_dbscan
+        pad = -n % mesh.devices.size
+        padded = torch.nn.functional.pad(emb, (0, 0, 0, pad))
+        valid = torch.arange(n + pad, device=dev) < n
         flags = make_sharded_points_dbscan(
             mesh, eps=eps, min_samples=min_samples, block=block)(
             padded, valid)
         with _trace.span("sad.fetch", rows=n):
             noise = flags.cpu().numpy()[:n]
     else:
-        dev = resolve_device(device)
-        with _trace.span("sad.to_device", rows=n):
-            points = torch.from_numpy(np.ascontiguousarray(emb)).to(dev)
-            valid = torch.ones(n, dtype=torch.bool, device=dev)
-        flags = dbscan_points_noise(points, valid, eps=eps,
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        flags = dbscan_points_noise(emb, valid, eps=eps,
                                     min_samples=min_samples, block=block)
         with _trace.span("sad.fetch", rows=n):
             noise = flags.cpu().numpy()
@@ -157,7 +177,9 @@ def run_spatial(db,
     1-D throughput only, plugins/anomaly-detection/
     anomaly_detection.py:325-349). mesh="auto" shards the pairwise
     pass over every visible card when `device` is a card
-    (utils.device.auto_mesh); without a mesh it runs on `device`.
+    (utils.device.auto_mesh), embedding on the mesh's first device;
+    without a mesh the embedding and the pass run on `device`
+    (device_embeddings).
     """
     import time as _time
     import uuid as _uuid
@@ -181,7 +203,7 @@ def run_spatial(db,
 
     if progress:
         progress.stage("embed")
-    emb = flow_embeddings(flows)
+    emb = device_embeddings(flows, embedding_device(mesh, device))
 
     if progress:
         progress.stage("score")

@@ -26,9 +26,9 @@ the manager's subprocess dispatch passes its own. Asked for the card
 on a machine without one, the runner exits non-zero before it reads
 the database; it never falls back to the CPU. After the timing lines
 on stderr it prints one line naming the device and the hand-written
-kernels' launch counts that moved during the job (B1, B2): the
-process dies with the job, so the parent reads them from the stderr
-tail it keeps on the record.
+kernels' launch counts that moved during the job (B1, B2, points,
+embed): the process dies with the job, so the parent reads them from
+the stderr tail it keeps on the record.
 
 Usage:
   python -m theia_tpu_torch.runner tad --db flows.npz --algo EWMA
@@ -361,7 +361,7 @@ def main(argv=None) -> None:
     from ..ops import _build
     # the line's name of each kernel library
     labels = {"B1": "stream_scan", "B2": "dbscan_noise",
-              "points": "points_pairs"}
+              "points": "points_pairs", "embed": "flow_embed"}
     before = _build.launches()
     with trace.span("runner.job", job=args.job, id=args.id or ""):
         job_id = runners[args.job](args)
